@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Drive the smd_tpu_torch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+The main path is the flagship TransformerDDPM (6 layers, 8 heads, embed 128,
+MLP 2048, two FiLM resblocks of width 2048) in the fused serving layout at
+bf16, served by the 1000-step DDPM ancestral sampler on sequences of 32x42
+latents: ``bench.py``'s workload at a batch of 64 requests. Phases, one
+flushed line each with its seconds:
+
+1. device: needs ``torch.cuda.is_available()``; prints nvidia-smi's card
+   name and power limit.
+2. build: builds (or finds) the CUDA kernels with nvcc.
+3. kernels: each kernel at the sampler's shapes (B=1000) against its plain
+   PyTorch version, plus small float32 cases; times the kernel, the plain
+   version and a one-call PyTorch yardstick with CUDA events.
+4. model: one flagship call on 64x32x42 through the kernels against the same
+   call through the plain versions; the launch counts rise by 6 and 4.
+5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests;
+   the counts rise by 6000 and 4000; a 20-step run through the kernels
+   matches one through the plain versions with the same generator.
+
+Any failed check exits non-zero. The line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or without the repository beside it, it fails and prints no
+result.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+T_START = time.perf_counter()
+
+# Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense).
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+SEQ_LEN, CHANNELS = 32, 42
+BENCH_BATCH = 1000          # bench.py's NUM_SAMPLES: the kernels' shapes
+SERVE_BATCH = 64            # requests served in the serve phase
+FLAGSHIP = dict(num_layers=6, num_heads=8, num_mlp_layers=2, mlp_dims=2048,
+                embed_channels=128)
+SERVE_STEPS = 1000
+
+
+def per_call_launches():
+    """(attention, film) launches of one model call: one per layer, two per
+    head resblock."""
+    return FLAGSHIP["num_layers"], 2 * FLAGSHIP["num_mlp_layers"]
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def check_close(what, got, ref, atol, rtol):
+    """max |got - ref|, failing unless |got - ref| <= atol + rtol * |ref|."""
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite output")
+    err = (got - ref).abs()
+    worst = float((err - rtol * ref.abs()).max())
+    max_err = float(err.max())
+    if worst > atol:
+        fail(f"{what}: max |err| {max_err:.3e} exceeds atol {atol} + "
+             f"rtol {rtol} * |ref|")
+    return max_err
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Median ms of ``iters`` calls, each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_ms(bytes_moved, ops_by_peak):
+    """Least time: the larger of bytes over the memory rate and the
+    operations over their peak rates. ``ops_by_peak`` is [(ops, peak)]."""
+    t_bytes = bytes_moved / PEAK_BYTES
+    t_ops = sum(ops / peak for ops, peak in ops_by_peak)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+class Phase:
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        say(f"[{self.name}] start")
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            say(f"[{self.name}] ok ({time.perf_counter() - self.t0:.1f} s)")
+        return False
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA "
+             "device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    say(smi)
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
+        f"python {sys.version.split()[0]}")
+    # float32 products are compared in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from smd_tpu_torch.ops import _build
+    path, seconds, log = _build.build()
+    _build.library()
+    spills = [ln.strip() for ln in log.splitlines()
+              if "spill" in ln and not ln.strip().startswith(
+                  "ptxas info    : Used") and " 0 bytes spill stores" not in ln]
+    kernels = sum("Compiling entry function" in ln for ln in log.splitlines())
+    say(f"built {path.relative_to(_build.BUILD_DIR.parent.parent)} in "
+        f"{seconds:.1f} s ({'reused' if seconds == 0 else 'nvcc'}; "
+        f"{kernels} kernel entries)")
+    for ln in spills:
+        say(f"ptxas: {ln}")
+
+
+def _film_inputs(B, S, K, N, dtype, gen):
+    dev = "cuda"
+    x = (torch.randn(B, S, K, generator=gen, device=dev) * 0.5 + 0.3)
+    scale = torch.randn(B, 1, K, generator=gen, device=dev) * 0.2 + 1.0
+    shift = torch.randn(B, 1, K, generator=gen, device=dev) * 0.2
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    b = torch.randn(N, generator=gen, device=dev) * 0.1
+    res = torch.randn(B, S, N, generator=gen, device=dev)
+    return x.to(dtype), scale, shift, w.to(dtype), b.to(dtype), res.to(dtype)
+
+
+def _attn_inputs(B, S, E, dtype, gen):
+    dev = "cuda"
+    x = torch.randn(B, S, E, generator=gen, device=dev) + 0.2
+    ws = [torch.randn(E, 3 * E, generator=gen, device=dev) / E ** 0.5,
+          torch.randn(3 * E, generator=gen, device=dev) * 0.1,
+          torch.randn(E, E, generator=gen, device=dev) / E ** 0.5,
+          torch.randn(E, generator=gen, device=dev) * 0.1,
+          1 + 0.1 * torch.randn(E, generator=gen, device=dev),
+          0.1 * torch.randn(E, generator=gen, device=dev)]
+    return x.to(dtype), [w.to(dtype) for w in ws]
+
+
+def phase_kernels():
+    from smd_tpu_torch.ops import fused_attention as fat
+    from smd_tpu_torch.ops import fused_film_resblock as ffr
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = {}
+
+    # -- fused_ln_film_swish_dense ------------------------------------------
+    op = ffr.fused_ln_film_swish_dense
+    B, S, K, N = BENCH_BATCH, SEQ_LEN, 2048, 2048
+    x, scale, shift, w, b, res = _film_inputs(B, S, K, N, torch.bfloat16, gen)
+    errs, ms, plain, bounds = [], [], [], []
+    for r in (None, res):
+        name = "film" + ("+residual" if r is not None else "")
+        out = op(x, scale, shift, w, b, r)
+        ref = ffr._reference(x, scale, shift, w, b, r)
+        # bf16 out: differently ordered float32 sums may land a result on
+        # the other side of a bf16 rounding boundary (2**-8 relative).
+        errs.append(check_close(name, out, ref, atol=2e-2, rtol=1e-2))
+        ms.append(time_ms(lambda: op(x, scale, shift, w, b, r)))
+        plain.append(time_ms(lambda: ffr._reference(x, scale, shift, w, b, r),
+                             iters=10))
+        M = B * S
+        moved = 2 * M * K + 2 * 4 * B * K + 2 * K * N + 2 * N + 2 * M * N + \
+            (2 * M * N if r is not None else 0)
+        # The product on the bf16 tensor cores; the float32 prologue is ~10
+        # operations per element of x (LN statistics and normalisation,
+        # FiLM affine, swish).
+        bounds.append(bound_ms(moved, [(2 * M * K * N, PEAK_BF16_FLOPS),
+                                       (10 * M * K, PEAK_FP32_FLOPS)]))
+        say(f"{name} B={B} S={S} K={K} N={N} bf16: max|err| {errs[-1]:.3e}, "
+            f"kernel {ms[-1]:.4f} ms, plain {plain[-1]:.4f} ms, bound "
+            f"{bounds[-1][0]:.4f} ms ({bounds[-1][1]})")
+    h = torch.nn.functional.silu(torch.nn.functional.layer_norm(
+        x.float(), (K,), eps=1e-6) * scale + shift).to(w.dtype)
+    lib = time_ms(lambda: torch.matmul(h, w))
+    say(f"film yardstick torch.matmul bf16 ({B * S}x{K})@({K}x{N}): "
+        f"{lib:.4f} ms")
+    xs, scs, shs, ws, bs, rs = _film_inputs(4, 32, 256, 256, torch.float32,
+                                            gen)
+    err32 = check_close("film float32", op(xs, scs, shs, ws, bs, rs),
+                        ffr._reference(xs, scs, shs, ws, bs, rs),
+                        atol=1e-4, rtol=1e-4)  # float32 sums in other order
+    say(f"film float32 B=4 S=32 K=N=256: max|err| {err32:.3e}")
+    records["fused_ln_film_swish_dense"] = dict(
+        source="smd_tpu_torch/csrc/fused_film_resblock.cu",
+        replaces="smd_tpu/ops/fused_film_resblock.py:152",
+        max_abs_err=max(errs), ms=statistics.mean(ms),
+        plain_ms=statistics.mean(plain),
+        bound_ms=statistics.mean(b_[0] for b_ in bounds),
+        bound_by=bounds[0][1], library_ms=lib)
+    del x, scale, shift, w, b, res, h
+
+    # -- fused_ln_attention -------------------------------------------------
+    op = fat.fused_ln_attention
+    B, S, E, H = BENCH_BATCH, SEQ_LEN, 128, 8
+    Dh = E // H
+    x, ws = _attn_inputs(B, S, E, torch.bfloat16, gen)
+    out = op(x, *ws, H, False)
+    ref = fat._reference(x, *ws, H, False)
+    # float32 inside, bf16 out: one bf16 rounding of |y|.
+    err = check_close("attention", out, ref, atol=2e-2, rtol=1e-2)
+    t_k = time_ms(lambda: op(x, *ws, H, False))
+    t_p = time_ms(lambda: fat._reference(x, *ws, H, False), iters=10)
+    R = B * S
+    ops = (2 * R * E * 3 * E + 2 * 2 * B * H * S * S * Dh +
+           2 * R * E * E + 5 * B * H * S * S + 8 * R * E)
+    moved = 2 * (2 * R * E) + 2 * (3 * E * E + 3 * E + E * E + 3 * E)
+    bnd = bound_ms(moved, [(ops, PEAK_FP32_FLOPS)])
+    qkv = (torch.nn.functional.layer_norm(
+        x.float(), (E,), ws[4].float(), ws[5].float(), eps=1e-6)
+        @ ws[0].float() + ws[1].float()).to(x.dtype)
+    q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
+               for t in qkv.split(E, dim=-1))
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v))
+    say(f"attention B={B} S={S} E={E} H={H} bf16: max|err| {err:.3e}, "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), yardstick scaled_dot_product_attention bf16 "
+        f"{lib:.4f} ms")
+    for (b_, s_, e_, h_, causal) in ((8, 32, 128, 8, True),
+                                     (6, 20, 64, 2, False)):
+        xs, wss = _attn_inputs(b_, s_, e_, torch.float32, gen)
+        e32 = check_close(f"attention float32 causal={causal}",
+                          op(xs, *wss, h_, causal),
+                          fat._reference(xs, *wss, h_, causal),
+                          atol=1e-4, rtol=1e-4)  # float32 sums in other order
+        say(f"attention float32 B={b_} S={s_} E={e_} H={h_} causal={causal}: "
+            f"max|err| {e32:.3e}")
+    records["fused_ln_attention"] = dict(
+        source="smd_tpu_torch/csrc/fused_attention.cu",
+        replaces="smd_tpu/ops/fused_attention.py:135",
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=lib)
+    torch.cuda.synchronize()
+    return records
+
+
+def _flagship():
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, fused_attention=True,
+                      fused_head=True, dtype=torch.bfloat16, **FLAGSHIP)
+    # Seeded random weights in the Flax layout, carried in by the converter,
+    # then cast to bf16 as bench.py casts its params.
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model = model.to(torch.bfloat16).eval()
+
+    def model_fn(x, cond):
+        return model(x.to(torch.bfloat16), cond.to(torch.bfloat16)).float()
+    return model, model_fn
+
+
+def _counts():
+    from smd_tpu_torch.ops import fused_attention as fat
+    from smd_tpu_torch.ops import fused_film_resblock as ffr
+    return (fat.fused_ln_attention.launches,
+            ffr.fused_ln_film_swish_dense.launches)
+
+
+def _reset_counts():
+    from smd_tpu_torch.ops import fused_attention as fat
+    from smd_tpu_torch.ops import fused_film_resblock as ffr
+    fat.fused_ln_attention.launches = 0
+    ffr.fused_ln_film_swish_dense.launches = 0
+
+
+def phase_model(model, model_fn):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                    device="cuda")
+    cond = torch.rand(SERVE_BATCH, 1, 1, generator=gen, device="cuda") \
+        * 0.95 + 0.05
+    with torch.no_grad():
+        _reset_counts()
+        out = model_fn(x, cond)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts != per_call_launches():
+            fail(f"one model call launched (attention, film) {counts}, "
+                 f"expected {per_call_launches()}")
+        ref = model_fn_plain(model, model_fn, x, cond)
+    if out.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
+            out.dtype != torch.float32:
+        fail(f"model output {tuple(out.shape)} {out.dtype}")
+    # bf16 rounding flips from differently ordered float32 sums, carried
+    # through 6 layers and the head.
+    scale = float(ref.abs().max())
+    err = check_close("model", out, ref, atol=5e-2 * scale, rtol=0.0)
+    say(f"flagship fused bf16 call on {SERVE_BATCH}x{SEQ_LEN}x{CHANNELS}: "
+        f"launches (attention, film) {counts}, kernels vs plain max|err| "
+        f"{err:.3e} (max|out| {scale:.3f})")
+
+
+def model_fn_plain(model, model_fn, *args):
+    """model_fn with the fused layers on their plain versions."""
+    model.use_plain_ops(True)
+    try:
+        return model_fn(*args)
+    finally:
+        model.use_plain_ops(False)
+
+
+def phase_serve(model, model_fn, smi):
+    from smd_tpu_torch.diffusion import schedules
+    from smd_tpu_torch.sampling import generate
+    betas = schedules.noise_schedule(1e-6, 0.01, SERVE_STEPS, "linear")
+
+    def serve(betas_, seed, fn=model_fn):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state, _, _ = generate.sample(fn, betas_, gen, (SEQ_LEN, CHANNELS),
+                                      num_samples=SERVE_BATCH,
+                                      sampling="ddpm", collect_steps=0,
+                                      collect_metrics=False, device="cuda")
+        return state
+
+    with torch.no_grad():
+        serve(schedules.noise_schedule(1e-6, 0.01, 3, "linear"), 2)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = serve(betas, 3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        expected = tuple(SERVE_STEPS * n for n in per_call_launches())
+        if not torch.isfinite(state).all():
+            fail("served samples are not finite")
+        if counts != expected:
+            fail(f"the {SERVE_STEPS}-step sample launched (attention, film) "
+                 f"{counts}, expected {expected}")
+        say(f"served {SERVE_BATCH} requests x {SERVE_STEPS} DDPM steps in "
+            f"{seconds:.3f} s = {SERVE_BATCH / seconds:.2f} seqs/s on "
+            f"{smi}; launches (attention, film) {counts}")
+
+        betas20 = schedules.noise_schedule(1e-6, 0.01, 20, "linear")
+        ours = serve(betas20, 4)
+        ref = serve(betas20, 4,
+                    fn=lambda x, c: model_fn_plain(model, model_fn, x, c))
+    # bf16 flips as in the model phase, carried over 20 steps; x0 is
+    # clipped to [-1, 1] and the posterior mean contracts each step.
+    err = check_close("20-step sample", ours, ref, atol=5e-2, rtol=5e-2)
+    say(f"20-step sample kernels vs plain, same generator: max|err| "
+        f"{err:.3e} (max|state| {float(ref.abs().max()):.3f})")
+    return counts
+
+
+def main():
+    with Phase("1 device"):
+        smi = phase_device()
+    with Phase("2 build"):
+        phase_build()
+    with Phase("3 kernels"):
+        records = phase_kernels()
+    with Phase("4 model"):
+        model, model_fn = _flagship()
+        phase_model(model, model_fn)
+    with Phase("5 serve"):
+        attn, film = phase_serve(model, model_fn, smi)
+    records["fused_ln_attention"]["launches"] = attn
+    records["fused_ln_film_swish_dense"]["launches"] = film
+    kernels = [dict(name=name, route="cuda", **rec)
+               for name, rec in records.items()]
+    say(f"total {time.perf_counter() - T_START:.1f} s")
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

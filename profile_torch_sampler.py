@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the time of a DDPM sampler step goes on the card (smd_tpu_torch).
+
+    python3 profile_torch_sampler.py [--batch 64] [--steps 20]
+
+Serves the flagship fused bf16 TransformerDDPM of ``chip_smoke.py`` with
+``generate.sample(sampling="ddpm")`` for ``--steps`` steps, first without
+and then under ``torch.profiler``, and prints: wall seconds per step (host
+clock around a synchronised run), the device's busy time per step (union of
+the kernels' intervals in the trace) and its idle share, and the kernels by
+device time. The last line is one JSON object with those numbers. Needs a
+CUDA device.
+"""
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+import chip_smoke
+
+
+def _serve(model_fn, steps, batch, seed):
+    from smd_tpu_torch.diffusion import schedules
+    from smd_tpu_torch.sampling import generate
+    betas = schedules.noise_schedule(1e-6, 0.01, steps, "linear")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return generate.sample(model_fn, betas, gen,
+                           (chip_smoke.SEQ_LEN, chip_smoke.CHANNELS),
+                           num_samples=batch, sampling="ddpm",
+                           collect_steps=0, collect_metrics=False,
+                           device="cuda")[0]
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args()
+    smi = chip_smoke.phase_device()
+    _, model_fn = chip_smoke._flagship()
+    with torch.no_grad():
+        _serve(model_fn, 3, args.batch, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _serve(model_fn, args.steps, args.batch, 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.steps
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _serve(model_fn, args.steps, args.batch, 1)
+            torch.cuda.synchronize()
+
+    per_kernel = defaultdict(lambda: [0, 0.0])
+    intervals = []
+    host = []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            start, end = evt.time_range.start, evt.time_range.end
+            intervals.append((start, end))
+            per_kernel[evt.name][0] += 1
+            per_kernel[evt.name][1] += end - start
+        else:
+            host.append((evt.time_range.start, evt.time_range.end))
+    if not intervals:
+        raise SystemExit("the profiler recorded no device time")
+    busy = _busy_us(intervals) / 1e6 / args.steps
+    span = (max(e for _, e in intervals + host) -
+            min(s for s, _ in intervals + host)) / 1e6 / args.steps
+    print(f"{smi}; batch {args.batch}, {args.steps} steps", flush=True)
+    print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
+          f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
+          f"idle share {1 - busy / span:.3f}")
+    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    print(f"{'device ms/step':>14} {'calls/step':>10}  kernel")
+    for name, (calls, us) in rows[:25]:
+        print(f"{us / 1e3 / args.steps:14.4f} {calls / args.steps:10.1f}  "
+              f"{name[:110]}")
+    print(json.dumps({
+        "card": smi, "batch": args.batch, "steps": args.steps,
+        "wall_ms_per_step": wall * 1e3,
+        "profiled_span_ms_per_step": span * 1e3,
+        "device_busy_ms_per_step": busy * 1e3,
+        "idle_share": 1 - busy / span,
+        "kernels": [{"name": n, "calls_per_step": c / args.steps,
+                     "device_ms_per_step": us / 1e3 / args.steps}
+                    for n, (c, us) in rows[:25]]}))
+
+
+if __name__ == "__main__":
+    main()

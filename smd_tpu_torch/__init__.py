@@ -1,0 +1,26 @@
+"""smd_tpu_torch — the PyTorch and CUDA port of ``smd_tpu`` for an NVIDIA H100.
+
+The JAX package ``smd_tpu`` stays the reference; every module here keeps its
+counterpart's path and names (``smd_tpu_torch/models/ddpm.py`` ports
+``smd_tpu/models/ddpm.py``) and is held against it by ``tests/test_torch_*.py``.
+Nothing here imports JAX or ``smd_tpu``: where the port needs a function of
+the JAX package, even a numpy-only one, it keeps its own copy.
+
+Entry points (``models.get_model``, ``sampling.generate.sample``) run on
+``cuda`` unless the caller passes ``device="cpu"``; without a GPU and without
+that request they raise (``device.resolve_device``). Each Pallas kernel of
+the JAX package that this port has reached is a CUDA C++ kernel under
+``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``) and called
+through ``ctypes``; on a CPU tensor its wrapper takes the plain PyTorch
+version that sits beside it.
+
+Subpackages
+-----------
+- ``smd_tpu_torch.diffusion``: noise schedules and the DDPM sampler.
+- ``smd_tpu_torch.models``: TransformerDDPM in the standard and fused layouts.
+- ``smd_tpu_torch.ops``: kernel wrappers, their plain versions, the build.
+- ``smd_tpu_torch.sampling``: the generation entry point.
+- ``smd_tpu_torch.utils``: the Flax params tree -> module weight carrier.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,78 @@
+// Helpers shared by the kernels of smd_tpu_torch. CUDA headers only.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace smd {
+
+// Element types as the Python wrappers code them (ops/_build.py).
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Eight contiguous raw elements of type T, held in registers.
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 a;
+};
+
+// p is 16-byte aligned.
+__device__ __forceinline__ void load_raw(const float* p, Raw8<float>& r) {
+  r.a = *reinterpret_cast<const float4*>(p);
+  r.b = *reinterpret_cast<const float4*>(p + 4);
+}
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p,
+                                         Raw8<__nv_bfloat16>& r) {
+  r.a = *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&v)[8]) {
+  v[0] = r.a.x; v[1] = r.a.y; v[2] = r.a.z; v[3] = r.a.w;
+  v[4] = r.b.x; v[5] = r.b.y; v[6] = r.b.z; v[7] = r.b.w;
+}
+__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r,
+                                       float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Eight contiguous elements as float32; p is 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
+  Raw8<T> r;
+  load_raw(p, r);
+  unpack(r, v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+}  // namespace smd

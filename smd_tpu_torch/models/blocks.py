@@ -1,0 +1,158 @@
+"""Shared building blocks (port of ``smd_tpu/models/blocks.py``).
+
+Submodules and parameters carry the Flax names (``Dense_0``, ``LayerNorm_1``,
+``w1``, ...) so a Flax params tree maps onto ``named_parameters()`` by path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from smd_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
+from smd_tpu_torch.ops import fused_film_resblock as ffr
+
+__all__ = [
+    "sinusoidal_embedding",
+    "positional_encoding",
+    "noise_encoding",
+    "DenseFiLM",
+    "DenseResBlock",
+    "FusedDenseResBlock",
+]
+
+
+def sinusoidal_embedding(positions: torch.Tensor,
+                         channels: int) -> torch.Tensor:
+    """Sin/cos embedding of a 1-D position/noise vector -> (len, channels)."""
+    if positions.dim() != 1:
+        raise ValueError("sinusoidal_embedding takes a 1-D tensor")
+    half_dim = channels // 2
+    # float32 throughout, as the JAX package computes it.
+    step = float(np.float32(np.log(np.float32(10000.0))) /
+                 np.float32(half_dim - 1))
+    freqs = torch.exp(torch.arange(half_dim, dtype=torch.float32,
+                                   device=positions.device) * -step)
+    emb = positions.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if channels % 2 == 1:
+        emb = nn.functional.pad(emb, (0, 1))
+    return emb
+
+
+def positional_encoding(seq_len: int, channels: int,
+                        device=None) -> torch.Tensor:
+    """Transformer positional encoding table, shape (seq_len, channels)."""
+    return sinusoidal_embedding(torch.arange(seq_len, device=device), channels)
+
+
+def noise_encoding(noise: torch.Tensor, channels: int) -> torch.Tensor:
+    """Sinusoidal embedding of a continuous noise level, scaled x5000."""
+    if noise.dim() == 2:
+        noise = noise.squeeze(-1)
+    if noise.dim() != 1:
+        raise ValueError("noise_encoding takes (B,) or (B, 1)")
+    return sinusoidal_embedding(5000.0 * noise, channels)
+
+
+def _swish(x):
+    return x * torch.sigmoid(x)
+
+
+class DenseFiLM(nn.Module):
+    """Feature-wise linear modulation from a noise level.
+
+    noise (B,) or (B,1) -> (scale, shift) each (B, out_channels), or
+    (B, 1, out_channels) when ``sequence=True``.
+    """
+
+    def __init__(self, embedding_channels: int, out_channels: int,
+                 sequence: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embedding_channels = embedding_channels
+        self.sequence = sequence
+        self.dtype = dtype
+        width = embedding_channels * 4
+        self.Dense_0 = Dense(embedding_channels, width, dtype=dtype)
+        self.Dense_1 = Dense(width, width, dtype=dtype)
+        self.Dense_2 = Dense(width, out_channels, dtype=dtype)
+        self.Dense_3 = Dense(width, out_channels, dtype=dtype)
+
+    def forward(self, position):
+        pos = noise_encoding(position, self.embedding_channels).to(self.dtype)
+        pos = _swish(self.Dense_0(pos))
+        pos = self.Dense_1(pos)
+        if self.sequence:
+            pos = pos[:, None, :]
+        return self.Dense_2(pos), self.Dense_3(pos)
+
+
+class DenseResBlock(nn.Module):
+    """Fully-connected residual block with FiLM conditioning.
+
+    LN -> affine -> swish -> Dense -> LN -> affine -> swish -> Dense, plus a
+    projected shortcut when the width changes.
+    """
+
+    def __init__(self, in_features: int, output_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(in_features, dtype=dtype)
+        self.Dense_0 = Dense(in_features, output_size, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(output_size, dtype=dtype)
+        self.Dense_1 = Dense(output_size, output_size, dtype=dtype)
+        self.Dense_2: Optional[Dense] = None
+        if in_features != output_size:
+            self.Dense_2 = Dense(in_features, output_size, dtype=dtype)
+
+    def forward(self, inputs, scale=1.0, shift=0.0):
+        x = _swish(self.LayerNorm_0(inputs) * scale + shift)
+        x = self.Dense_0(x)
+        x = _swish(self.LayerNorm_1(x) * scale + shift)
+        x = self.Dense_1(x)
+        shortcut = inputs if self.Dense_2 is None else self.Dense_2(inputs)
+        return x + shortcut
+
+
+class FusedDenseResBlock(nn.Module):
+    """DenseResBlock with each half one ``fused_ln_film_swish_dense`` call.
+
+    Serving layout: flat params (ln1_scale/ln1_bias/w1/b1, ln2_*/w2/b2); the
+    LN affine folds into the FiLM affine so each half is one kernel launch.
+    Convert DenseResBlock params with ``models.fuse.fuse_head_params``.
+    Requires input width == output_size (the head case). ``plain=True`` runs
+    the kernels' plain versions wherever the tensors lie: the yardstick a
+    kernel is checked against, never the serving path.
+    """
+
+    def __init__(self, output_size: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n = output_size
+        self.dtype = dtype
+        self.plain = False
+        self.w1 = nn.Parameter(lecun_normal_(torch.empty(n, n), n))
+        self.b1 = nn.Parameter(torch.zeros(n))
+        self.ln1_scale = nn.Parameter(torch.ones(n))
+        self.ln1_bias = nn.Parameter(torch.zeros(n))
+        self.w2 = nn.Parameter(lecun_normal_(torch.empty(n, n), n))
+        self.b2 = nn.Parameter(torch.zeros(n))
+        self.ln2_scale = nn.Parameter(torch.ones(n))
+        self.ln2_bias = nn.Parameter(torch.zeros(n))
+
+    def forward(self, inputs, scale, shift):
+        scale = torch.as_tensor(scale, dtype=torch.float32,
+                                device=inputs.device)
+        shift = torch.as_tensor(shift, dtype=torch.float32,
+                                device=inputs.device)
+        # Fold LN's learned affine into the FiLM affine:
+        # (z*ls + lb)*s + sh == z*(ls*s) + (lb*s + sh).
+        s1 = self.ln1_scale.float() * scale
+        h1 = self.ln1_bias.float() * scale + shift
+        s2 = self.ln2_scale.float() * scale
+        h2 = self.ln2_bias.float() * scale + shift
+        w1, w2 = self.w1.to(self.dtype), self.w2.to(self.dtype)
+        op = ffr._reference if self.plain else ffr.fused_ln_film_swish_dense
+        u = op(inputs, s1, h1, w1, self.b1)
+        return op(u, s2, h2, w2, self.b2, residual=inputs)

@@ -1,0 +1,83 @@
+"""The Flax Linen layers the JAX models build on, with Flax's parameter layout.
+
+A Dense kernel is ``(in, out)`` and is applied as ``x @ W + b``, so carrying
+a Flax params tree over is a rename (``utils/flax_params.py``). The dtype
+rules are Flax's: with ``dtype=None`` a layer computes in the promoted type
+of its input and parameters; with a dtype it casts all of them to it.
+LayerNorm takes its statistics in float32 with Flax's epsilon (1e-6) and its
+one-pass variance, and casts the result to the layer's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+__all__ = ["Dense", "DenseGeneral", "LayerNorm", "lecun_normal_"]
+
+
+def lecun_normal_(param: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """Flax's default kernel init: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(param, std=std, a=-2 * std, b=2 * std)
+
+
+def _compute_dtype(dtype, *tensors) -> torch.dtype:
+    if dtype is not None:
+        return dtype
+    out = tensors[0].dtype
+    for t in tensors[1:]:
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
+class DenseGeneral(nn.Module):
+    """``flax.linen.DenseGeneral`` over the trailing ``len(in_shape)`` axes."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.dtype = dtype
+        fan_in = math.prod(self.in_shape)
+        self.kernel = nn.Parameter(lecun_normal_(
+            torch.empty(*self.in_shape, *self.out_shape), fan_in))
+        self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.kernel, self.bias)
+        n_in = len(self.in_shape)
+        lead = x.shape[:x.dim() - n_in]
+        k = self.kernel.to(dt).reshape(math.prod(self.in_shape), -1)
+        y = torch.matmul(x.to(dt).reshape(*lead, -1), k)
+        return y.reshape(*lead, *self.out_shape) + self.bias.to(dt)
+
+
+class Dense(DenseGeneral):
+    """``flax.linen.Dense``: kernel ``(in, out)``, bias ``(out,)``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__((in_features,), (out_features,), dtype)
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` over the last axis, with scale and bias."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + 1e-6) * self.scale.float()
+        y = (xf - mean) * mul + self.bias.float()
+        return y.to(_compute_dtype(self.dtype, x, self.scale, self.bias))

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+- ``fused_film_resblock.fused_ln_film_swish_dense`` (csrc/fused_film_resblock.cu)
+- ``fused_attention.fused_ln_attention`` (csrc/fused_attention.cu)
+
+Each wrapper launches its kernel on a CUDA tensor (or raises), takes its
+plain version on a CPU tensor, and counts its launches in ``.launches``.
+"""

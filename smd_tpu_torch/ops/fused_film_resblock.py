@@ -1,0 +1,78 @@
+"""Fused FiLM-resblock half: LN + FiLM affine + swish + Dense (+ residual).
+
+Port of ``smd_tpu/ops/fused_film_resblock.py`` (``fused_ln_film_swish_dense``,
+Pallas body ``_ln_film_swish_dense_body``)::
+
+    y = swish(LN(x) * scale + shift) @ W + b  [+ residual]
+
+LN has no learned affine (``FusedDenseResBlock`` folds it into scale and
+shift) and eps 1e-6; the prologue runs in float32; ``h`` is rounded to W's
+dtype before the product, which sums in float32; bias and residual are added
+in float32 and the result is stored in ``x.dtype``.
+
+On a CUDA tensor the wrapper launches the CUDA kernel of
+``csrc/fused_film_resblock.cu`` (a row-statistics pass, then the fused
+product) or raises; on a CPU tensor it takes
+``_reference``, the plain PyTorch version. Serving only: no backward yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from smd_tpu_torch.ops import _build
+
+__all__ = ["fused_ln_film_swish_dense"]
+
+
+def _reference(x, scale, shift, w, b, residual=None):
+    """Plain PyTorch transcription of the JAX ``_reference``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    h = (xf - mean) * torch.rsqrt(var + 1e-6)
+    h = h * scale.float() + shift.float()
+    h = h * torch.sigmoid(h)
+    # bf16 operands, float32 sum: the operands are rounded to W's dtype and
+    # multiplied in float32, which keeps the sum unrounded.
+    out = torch.matmul(h.to(w.dtype).float(), w.float())
+    out = out + b.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(x.dtype)
+
+
+def fused_ln_film_swish_dense(x, scale, shift, w, b, residual=None):
+    """y = swish(LN(x) * scale + shift) @ w + b [+ residual].
+
+    Shapes: x (B, S, K); scale/shift (B, 1, K) float32; w (K, N); b (N,);
+    residual (B, S, N) in x.dtype, or None. Returns (B, S, N) in x.dtype.
+    """
+    if x.device.type == "cpu":
+        return _reference(x, scale, shift, w, b, residual)
+    B, S, K = x.shape
+    N = w.shape[1]
+    _build.check_cuda_args(
+        x.device,
+        x=(x, (B, S, K), _build.FLOATS),
+        scale=(scale, (B, 1, K), (torch.float32,)),
+        shift=(shift, (B, 1, K), (torch.float32,)),
+        w=(w, (K, N), _build.FLOATS),
+        b=(b, (N,), _build.FLOATS),
+        residual=(residual, (B, S, N), (x.dtype,)))
+    if K % 8 or N % 8:
+        raise ValueError(f"fused_ln_film_swish_dense needs K and N to be "
+                         f"multiples of 8, got K={K}, N={N}")
+    out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    # Each row's LN (mean, 1/std), computed once per call by the kernel.
+    stats = torch.empty((B * S, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "smd_fused_ln_film_swish_dense",
+            x, scale, shift, w, b, residual, out, stats,
+            B, S, K, N,
+            _build.dtype_code(x), _build.dtype_code(w), _build.dtype_code(b))
+    fused_ln_film_swish_dense.launches += 1
+    return out
+
+
+fused_ln_film_swish_dense.launches = 0

@@ -1,0 +1,97 @@
+"""The port stands alone and keeps to the device rule.
+
+``smd_tpu_torch/``, ``chip_smoke.py`` and ``profile_torch_sampler.py`` import
+nothing of JAX, its ecosystem or the JAX package; entry points called
+without ``device="cpu"`` raise when there is no GPU.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from smd_tpu_torch.device import resolve_device
+from smd_tpu_torch.diffusion import schedules
+from smd_tpu_torch.models import get_model
+from smd_tpu_torch.sampling import generate
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "absl",
+             "smd_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "smd_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_torch_sampler.py"]
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def test_port_imports_nothing_of_jax():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_rule(no_gpu):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("TransformerDDPM", data_channels=8, num_layers=1,
+                  mlp_dims=32, embed_channels=16, num_heads=2)
+    betas = schedules.noise_schedule(1e-4, 0.02, 4, "linear")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate.sample(lambda x, c: x, betas, None, (4, 2), num_samples=2,
+                        sampling="ddpm")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate.make_init(None, 2, (4, 2), "ddpm")
+
+
+def test_entry_points_run_on_cpu_when_asked(no_gpu):
+    model = get_model("TransformerDDPM", device="cpu", data_channels=8,
+                      num_layers=1, mlp_dims=32, embed_channels=16,
+                      num_heads=2)
+    assert next(model.parameters()).device.type == "cpu"
+    betas = schedules.noise_schedule(1e-4, 0.02, 4, "linear")
+    state, _, _ = generate.sample(lambda x, c: torch.zeros_like(x), betas,
+                                  torch.Generator().manual_seed(0), (4, 2),
+                                  num_samples=2, sampling="ddpm",
+                                  device="cpu")
+    assert state.shape == (2, 4, 2)
+
+
+def test_kernel_wrappers_take_no_other_device():
+    from smd_tpu_torch.ops import _build
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_cuda_args(torch.device("meta"),
+                               x=(None, (1,), _build.FLOATS))
