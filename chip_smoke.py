@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-The main path is the flagship TransformerDDPM (6 layers, 8 heads, embed 128,
-MLP 2048, two FiLM resblocks of width 2048) in the fused serving layout at
-bf16, served by the 1000-step DDPM ancestral sampler on sequences of 32x42
-latents: ``bench.py``'s workload at a batch of 64 requests. Phases, one
-flushed line each with its seconds:
+The main paths are the flagship TransformerDDPM (6 layers, 8 heads, embed
+128, MLP 2048, two FiLM resblocks of width 2048) at bf16, served by the
+1000-step DDPM ancestral sampler on sequences of 32x42 latents
+(``bench.py``'s workload at a batch of 64 requests), in two layouts: the
+fused serving layout, and the standard einsum trunk with the int8 head
+(``quantized_head_kernel``, ``bench.py``'s ``BENCH_QUANT_KERNEL=1``).
+Phases, one flushed line each with its seconds:
 
 1. device: needs ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit.
@@ -20,6 +22,15 @@ flushed line each with its seconds:
 5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests;
    the counts rise by 6000 and 4000; a 20-step run through the kernels
    matches one through the plain versions with the same generator.
+6. int8 model: the flagship's standard-layout weights from a seed,
+   quantized with ``quantize_head_params`` and calibrated on the card with
+   ``calibrate_head_act_scales``, float leaves cast to bf16; one call on
+   64x32x42 through the w8a8 kernel against the plain version; the w8a8
+   count rises by 4.
+7. int8 serve: as 5 with the int8 model; the w8a8 count rises by 4000.
+
+Before each model call and each 1000-step serve every launch count is set
+to 0, and after it every count is read and checked.
 
 Any failed check exits non-zero. The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -38,6 +49,7 @@ T_START = time.perf_counter()
 
 # Published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -49,10 +61,15 @@ FLAGSHIP = dict(num_layers=6, num_heads=8, num_mlp_layers=2, mlp_dims=2048,
 SERVE_STEPS = 1000
 
 
-def per_call_launches():
-    """(attention, film) launches of one model call: one per layer, two per
-    head resblock."""
-    return FLAGSHIP["num_layers"], 2 * FLAGSHIP["num_mlp_layers"]
+KERNELS = ("fused_ln_attention", "fused_ln_film_swish_dense", "w8a8_dense")
+
+
+def per_call_launches(int8=False):
+    """(attention, film, w8a8) launches of one model call. Fused layout: one
+    attention launch per layer and a film launch per head matmul; int8
+    layout: a w8a8 launch per head matmul."""
+    head = 2 * FLAGSHIP["num_mlp_layers"]
+    return (0, 0, head) if int8 else (FLAGSHIP["num_layers"], head, 0)
 
 
 def say(msg):
@@ -266,8 +283,91 @@ def phase_kernels():
         replaces="smd_tpu/ops/fused_attention.py:135",
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd[0],
         bound_by=bnd[1], library_ms=lib)
+    del x, ws, qkv, q, k, v
+    records["w8a8_dense"] = _w8a8_kernel_checks(gen)
     torch.cuda.synchronize()
     return records
+
+
+def _w8a8_inputs(M, K, N, dtype, gen, bias=True):
+    """x as the head's swish outputs come, w_q and w_s from a quantized
+    random kernel, and the static scale that calibration would set. The
+    scales and bias take x's dtype, as the served leaves do."""
+    from smd_tpu_torch.ops.quant import quantize_weight
+    dev = "cuda"
+    xf = torch.randn(M, K, generator=gen, device=dev) * 0.8 + 0.3
+    x = (xf * torch.sigmoid(xf)).to(dtype)
+    w_q, w_s = quantize_weight(torch.randn(K, N, generator=gen, device=dev)
+                               / K ** 0.5)
+    b = torch.randn(N, generator=gen, device=dev) * 0.1 if bias else None
+    a_s = x.float().abs().amax() / 127
+    return (x, w_q, w_s.to(dtype), None if b is None else b.to(dtype),
+            a_s.to(dtype))
+
+
+def _w8a8_kernel_checks(gen):
+    from smd_tpu_torch.ops import quant_matmul as qmm
+    from smd_tpu_torch.ops.quant import int8_codes, int8_matmul
+    op = qmm.w8a8_dense
+    # The int32 sums, exactly: integer-valued x (its own codes at a scale of
+    # 1) with |x| <= 64 keeps every sum below 2**24, so y is the sum itself.
+    K, N = 2048, 2048
+    xi = torch.randint(-64, 65, (256, K), generator=gen, device="cuda")
+    w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    one = torch.ones((), device="cuda")
+    y = op(xi.float(), w_q, torch.ones(N, device="cuda"), None, one)
+    sums = int8_matmul(xi.to(torch.int8), w_q)
+    if not torch.equal(y, sums):
+        fail(f"w8a8 int32 sums differ from the exact sums at "
+             f"{int((y != sums).sum())} places")
+    say(f"w8a8 int32 sums M=256 K={K} N={N}: equal to the exact sums")
+
+    # The bench's shape, bf16 as served: exact sums and the same epilogue,
+    # so the outputs agree to one bf16 rounding.
+    M = BENCH_BATCH * SEQ_LEN
+    x, w_q, w_s, b, a_s = _w8a8_inputs(M, K, N, torch.bfloat16, gen)
+    out = op(x, w_q, w_s, b, a_s)
+    ref = qmm._reference(x, w_q, w_s, b, a_s)
+    err = check_close("w8a8", out, ref, atol=1e-6, rtol=2 ** -7)
+    t_k = time_ms(lambda: op(x, w_q, w_s, b, a_s))
+    t_p = time_ms(lambda: qmm._reference(x, w_q, w_s, b, a_s), iters=10)
+    moved = 2 * M * K + K * N + 2 * 2 * N + 2 + 2 * M * N
+    # The int8 products on the tensor cores; on the CUDA cores the quantize
+    # (divide, round, two clamps per element of x) and the epilogue
+    # (convert, scale, bias per element of y).
+    bnd = bound_ms(moved, [(2 * M * K * N, PEAK_INT8_OPS),
+                           (4 * M * K + 3 * M * N, PEAK_FP32_FLOPS)])
+    x_q = int8_codes(x.float(), a_s.float())
+    lib = time_ms(lambda: torch._int_mm(x_q, w_q))
+    if not torch.equal(torch._int_mm(x_q, w_q).float(),
+                       int8_matmul(x_q, w_q)):
+        fail("torch._int_mm disagrees with the exact int32 sums")
+    # cuBLAS takes another route for a column-major w_q, the layout the
+    # kernel transposes w_q into; shown beside the yardstick, not in it.
+    w_cm = w_q.t().contiguous().t()
+    lib_cm = time_ms(lambda: torch._int_mm(x_q, w_cm))
+    say(f"w8a8 M={M} K={K} N={N} bf16: max|err| {err:.3e} (max|y| "
+        f"{float(ref.float().abs().max()):.3f}), kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), yardstick "
+        f"torch._int_mm on the quantized operands {lib:.4f} ms "
+        f"({lib_cm:.4f} ms with w_q column-major)")
+    del x, x_q, w_cm, out, ref
+
+    # A ragged row count with no bias, and float32 x with float32 leaves.
+    for M, dtype, bias in ((1000, torch.bfloat16, False),
+                           (4000, torch.float32, True)):
+        args = _w8a8_inputs(M, K, N, dtype, gen, bias=bias)
+        # float32: the same roundings, so equal up to an ulp or two.
+        tol = (1e-6, 1e-6) if dtype == torch.float32 else (1e-6, 2 ** -7)
+        e = check_close(f"w8a8 {dtype} M={M}", op(*args),
+                        qmm._reference(*args), atol=tol[0], rtol=tol[1])
+        say(f"w8a8 M={M} K={K} N={N} {dtype} bias={bias}: max|err| "
+            f"{e:.3e}")
+    return dict(source="smd_tpu_torch/csrc/quant_matmul.cu",
+                replaces="smd_tpu/ops/quant_matmul.py:127",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib)
 
 
 def _flagship():
@@ -287,21 +387,62 @@ def _flagship():
     return model, model_fn
 
 
-def _counts():
+def _int8_flagship():
+    """The flagship with the int8 head through the w8a8 kernel: weights of
+    the standard layout from a seed, quantized and calibrated on the card as
+    ``benchmarks/flagship_e2e.py`` does (noise/data mixes at four noise
+    levels, seeded random latents in place of data), float leaves then cast
+    to bf16 as ``bench.py`` casts them."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.fuse import (calibrate_head_act_scales,
+                                           quantize_head_params)
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    std = get_model("TransformerDDPM", device="cpu", data_channels=CHANNELS,
+                    **FLAGSHIP)
+    tree = quantize_head_params(random_flax_params(std, seed=0))
+    del std
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, quantized_head=True,
+                      quantized_head_kernel=True, dtype=torch.bfloat16,
+                      **FLAGSHIP)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (SERVE_BATCH, SEQ_LEN, CHANNELS)
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    data = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    cal = [(noise * (1.0 - a) + data * a,
+            torch.full((SERVE_BATCH, 1, 1), t, device="cuda"))
+           for a, t in ((0.0, 0.99), (0.5, 0.5), (0.9, 0.1), (1.0, 0.02))]
+    tree = calibrate_head_act_scales(model, tree, cal)
+    load_flax_params(model, tree)
+    model = model.to(torch.bfloat16).eval()
+    scales = [(m.a1_scale.item(), m.a2_scale.item())
+              for m in model.modules() if hasattr(m, "a1_scale")]
+    say(f"calibrated (a1_scale, a2_scale) per head resblock, bf16: {scales}")
+
+    def model_fn(x, cond):
+        return model(x.to(torch.bfloat16), cond.to(torch.bfloat16)).float()
+    return model, model_fn
+
+
+def _wrappers():
     from smd_tpu_torch.ops import fused_attention as fat
     from smd_tpu_torch.ops import fused_film_resblock as ffr
-    return (fat.fused_ln_attention.launches,
-            ffr.fused_ln_film_swish_dense.launches)
+    from smd_tpu_torch.ops import quant_matmul as qmm
+    return (fat.fused_ln_attention, ffr.fused_ln_film_swish_dense,
+            qmm.w8a8_dense)
+
+
+def _counts():
+    return tuple(w.launches for w in _wrappers())
 
 
 def _reset_counts():
-    from smd_tpu_torch.ops import fused_attention as fat
-    from smd_tpu_torch.ops import fused_film_resblock as ffr
-    fat.fused_ln_attention.launches = 0
-    ffr.fused_ln_film_swish_dense.launches = 0
+    for w in _wrappers():
+        w.launches = 0
 
 
-def phase_model(model, model_fn):
+def phase_model(model, model_fn, int8=False):
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
                     device="cuda")
@@ -312,9 +453,9 @@ def phase_model(model, model_fn):
         out = model_fn(x, cond)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts != per_call_launches():
-            fail(f"one model call launched (attention, film) {counts}, "
-                 f"expected {per_call_launches()}")
+        if counts != per_call_launches(int8):
+            fail(f"one model call launched (attention, film, w8a8) "
+                 f"{counts}, expected {per_call_launches(int8)}")
         ref = model_fn_plain(model, model_fn, x, cond)
     if out.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
             out.dtype != torch.float32:
@@ -323,9 +464,10 @@ def phase_model(model, model_fn):
     # through 6 layers and the head.
     scale = float(ref.abs().max())
     err = check_close("model", out, ref, atol=5e-2 * scale, rtol=0.0)
-    say(f"flagship fused bf16 call on {SERVE_BATCH}x{SEQ_LEN}x{CHANNELS}: "
-        f"launches (attention, film) {counts}, kernels vs plain max|err| "
-        f"{err:.3e} (max|out| {scale:.3f})")
+    say(f"flagship {'int8' if int8 else 'fused'} bf16 call on "
+        f"{SERVE_BATCH}x{SEQ_LEN}x{CHANNELS}: launches (attention, film, "
+        f"w8a8) {counts}, kernels vs plain max|err| {err:.3e} (max|out| "
+        f"{scale:.3f})")
 
 
 def model_fn_plain(model, model_fn, *args):
@@ -337,7 +479,7 @@ def model_fn_plain(model, model_fn, *args):
         model.use_plain_ops(False)
 
 
-def phase_serve(model, model_fn, smi):
+def phase_serve(model, model_fn, smi, int8=False):
     from smd_tpu_torch.diffusion import schedules
     from smd_tpu_torch.sampling import generate
     betas = schedules.noise_schedule(1e-6, 0.01, SERVE_STEPS, "linear")
@@ -359,15 +501,18 @@ def phase_serve(model, model_fn, smi):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _counts()
-        expected = tuple(SERVE_STEPS * n for n in per_call_launches())
+        expected = tuple(SERVE_STEPS * n for n in per_call_launches(int8))
         if not torch.isfinite(state).all():
             fail("served samples are not finite")
+        if state.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS):
+            fail(f"served samples have shape {tuple(state.shape)}")
         if counts != expected:
-            fail(f"the {SERVE_STEPS}-step sample launched (attention, film) "
-                 f"{counts}, expected {expected}")
-        say(f"served {SERVE_BATCH} requests x {SERVE_STEPS} DDPM steps in "
-            f"{seconds:.3f} s = {SERVE_BATCH / seconds:.2f} seqs/s on "
-            f"{smi}; launches (attention, film) {counts}")
+            fail(f"the {SERVE_STEPS}-step sample launched (attention, film, "
+                 f"w8a8) {counts}, expected {expected}")
+        say(f"served {'int8' if int8 else 'fused'}: {SERVE_BATCH} requests "
+            f"x {SERVE_STEPS} DDPM steps in {seconds:.3f} s = "
+            f"{SERVE_BATCH / seconds:.2f} seqs/s on {smi}; launches "
+            f"(attention, film, w8a8) {counts}")
 
         betas20 = schedules.noise_schedule(1e-6, 0.01, 20, "linear")
         ours = serve(betas20, 4)
@@ -392,11 +537,18 @@ def main():
         model, model_fn = _flagship()
         phase_model(model, model_fn)
     with Phase("5 serve"):
-        attn, film = phase_serve(model, model_fn, smi)
-    records["fused_ln_attention"]["launches"] = attn
-    records["fused_ln_film_swish_dense"]["launches"] = film
-    kernels = [dict(name=name, route="cuda", **rec)
-               for name, rec in records.items()]
+        fused_counts = phase_serve(model, model_fn, smi)
+    del model, model_fn
+    with Phase("6 int8 model"):
+        model, model_fn = _int8_flagship()
+        phase_model(model, model_fn, int8=True)
+    with Phase("7 int8 serve"):
+        int8_counts = phase_serve(model, model_fn, smi, int8=True)
+    # Each kernel's launches in the serve of the path that runs it.
+    for name, n_fused, n_int8 in zip(KERNELS, fused_counts, int8_counts):
+        records[name]["launches"] = n_fused + n_int8
+    kernels = [dict(name=name, route="cuda", **records[name])
+               for name in KERNELS]
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,8 +2,11 @@
 """Where the time of a DDPM sampler step goes on the card (smd_tpu_torch).
 
     python3 profile_torch_sampler.py [--batch 64] [--steps 20]
+                                     [--quantized_head_kernel]
 
-Serves the flagship fused bf16 TransformerDDPM of ``chip_smoke.py`` with
+Serves the flagship fused bf16 TransformerDDPM of ``chip_smoke.py`` (or,
+with ``--quantized_head_kernel``, its int8-head model: the standard einsum
+trunk and the w8a8 kernel, quantized and calibrated as there) with
 ``generate.sample(sampling="ddpm")`` for ``--steps`` steps, first without
 and then under ``torch.profiler``, and prints: wall seconds per step (host
 clock around a synchronised run), the device's busy time per step (union of
@@ -50,9 +53,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--quantized_head_kernel", action="store_true",
+                    help="serve the int8 head through the w8a8 kernel")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
-    _, model_fn = chip_smoke._flagship()
+    if args.quantized_head_kernel:
+        _, model_fn = chip_smoke._int8_flagship()
+    else:
+        _, model_fn = chip_smoke._flagship()
     with torch.no_grad():
         _serve(model_fn, 3, args.batch, 0)
         torch.cuda.synchronize()
@@ -83,7 +91,9 @@ def main():
     busy = _busy_us(intervals) / 1e6 / args.steps
     span = (max(e for _, e in intervals + host) -
             min(s for s, _ in intervals + host)) / 1e6 / args.steps
-    print(f"{smi}; batch {args.batch}, {args.steps} steps", flush=True)
+    layout = "int8 head" if args.quantized_head_kernel else "fused"
+    print(f"{smi}; {layout}, batch {args.batch}, {args.steps} steps",
+          flush=True)
     print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
           f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
           f"idle share {1 - busy / span:.3f}")
@@ -93,7 +103,8 @@ def main():
         print(f"{us / 1e3 / args.steps:14.4f} {calls / args.steps:10.1f}  "
               f"{name[:110]}")
     print(json.dumps({
-        "card": smi, "batch": args.batch, "steps": args.steps,
+        "card": smi, "layout": layout, "batch": args.batch,
+        "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
         "profiled_span_ms_per_step": span * 1e3,
         "device_busy_ms_per_step": busy * 1e3,

@@ -17,7 +17,8 @@ version that sits beside it.
 Subpackages
 -----------
 - ``smd_tpu_torch.diffusion``: noise schedules and the DDPM sampler.
-- ``smd_tpu_torch.models``: TransformerDDPM in the standard and fused layouts.
+- ``smd_tpu_torch.models``: TransformerDDPM in the standard and fused layouts
+  and with the int8 serving head.
 - ``smd_tpu_torch.ops``: kernel wrappers, their plain versions, the build.
 - ``smd_tpu_torch.sampling``: the generation entry point.
 - ``smd_tpu_torch.utils``: the Flax params tree -> module weight carrier.

@@ -13,6 +13,8 @@ from torch import nn
 
 from smd_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
 from smd_tpu_torch.ops import fused_film_resblock as ffr
+from smd_tpu_torch.ops import quant_matmul as qmm
+from smd_tpu_torch.ops.quant import int8_dense
 
 __all__ = [
     "sinusoidal_embedding",
@@ -21,6 +23,7 @@ __all__ = [
     "DenseFiLM",
     "DenseResBlock",
     "FusedDenseResBlock",
+    "QuantDenseResBlock",
 ]
 
 
@@ -59,6 +62,11 @@ def noise_encoding(noise: torch.Tensor, channels: int) -> torch.Tensor:
 
 def _swish(x):
     return x * torch.sigmoid(x)
+
+
+def _ln_film_swish(ln, x, scale, shift):
+    """One half's prologue: LN, FiLM affine, swish, in the layers' dtype."""
+    return _swish(ln(x) * scale + shift)
 
 
 class DenseFiLM(nn.Module):
@@ -108,10 +116,9 @@ class DenseResBlock(nn.Module):
             self.Dense_2 = Dense(in_features, output_size, dtype=dtype)
 
     def forward(self, inputs, scale=1.0, shift=0.0):
-        x = _swish(self.LayerNorm_0(inputs) * scale + shift)
-        x = self.Dense_0(x)
-        x = _swish(self.LayerNorm_1(x) * scale + shift)
-        x = self.Dense_1(x)
+        x = self.Dense_0(_ln_film_swish(self.LayerNorm_0, inputs, scale,
+                                        shift))
+        x = self.Dense_1(_ln_film_swish(self.LayerNorm_1, x, scale, shift))
         shortcut = inputs if self.Dense_2 is None else self.Dense_2(inputs)
         return x + shortcut
 
@@ -156,3 +163,70 @@ class FusedDenseResBlock(nn.Module):
         op = ffr._reference if self.plain else ffr.fused_ln_film_swish_dense
         u = op(inputs, s1, h1, w1, self.b1)
         return op(u, s2, h2, w2, self.b2, residual=inputs)
+
+
+class QuantDenseResBlock(nn.Module):
+    """DenseResBlock with both matmuls on the int8 path (serving only).
+
+    Each half is LN -> FiLM affine -> swish -> int8 dense, cast to
+    ``dtype``, and the block adds its input. Weights are symmetric
+    per-channel int8 (``w1_q``/``w2_q``, buffers that ``.to(dtype)`` leaves
+    int8) with float scales ``w*_scale``, biases ``b*`` and scalar static
+    activation scales ``a*_scale``; convert DenseResBlock params with
+    ``models.fuse.quantize_head_params`` and calibrate the activation scales
+    with ``models.fuse.calibrate_head_act_scales``. ``use_kernel`` routes
+    the matmuls through ``w8a8_dense`` (static scales only), else through
+    ``int8_dense``, with a dynamic per-row scale when ``static_act`` is
+    False. ``plain=True`` runs the kernel's plain version wherever the
+    tensors lie: the yardstick the kernel is checked against. With
+    ``observe`` on, each call records ``max|x|`` in float32 of the
+    activations before each matmul in ``amax`` (keys ``a1_amax``,
+    ``a2_amax``; the largest seen since ``amax`` was last emptied), the
+    counterpart of the JAX module's ``sow``. Requires input width ==
+    output_size (the head case, no shortcut projection).
+    """
+
+    def __init__(self, output_size: int, dtype: torch.dtype = torch.float32,
+                 static_act: bool = True, use_kernel: bool = False):
+        super().__init__()
+        if use_kernel and not static_act:
+            raise ValueError("the w8a8 kernel requires static activation "
+                             "scales")
+        n = output_size
+        self.dtype = dtype
+        self.static_act = static_act
+        self.use_kernel = use_kernel
+        self.plain = False
+        self.observe = False
+        self.amax: dict = {}
+        self.LayerNorm_0 = LayerNorm(n, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(n, dtype=dtype)
+        for i in (1, 2):
+            self.register_buffer(f"w{i}_q", torch.zeros(n, n,
+                                                       dtype=torch.int8))
+            setattr(self, f"w{i}_scale", nn.Parameter(torch.ones(n)))
+            setattr(self, f"b{i}", nn.Parameter(torch.zeros(n)))
+            setattr(self, f"a{i}_scale", nn.Parameter(torch.ones(())))
+
+    def _dense(self, x, i: int):
+        w_q, w_s = getattr(self, f"w{i}_q"), getattr(self, f"w{i}_scale")
+        b, a_s = getattr(self, f"b{i}"), getattr(self, f"a{i}_scale")
+        if self.observe:
+            seen = x.float().abs().amax()
+            key = f"a{i}_amax"
+            self.amax[key] = seen if key not in self.amax else \
+                torch.maximum(self.amax[key], seen)
+        if self.use_kernel:
+            op = qmm._reference if self.plain else qmm.w8a8_dense
+            return op(x, w_q, w_s, b, a_s).to(self.dtype)
+        return int8_dense(x, w_q, w_s, b,
+                          a_s if self.static_act else None).to(self.dtype)
+
+    def forward(self, inputs, scale=1.0, shift=0.0):
+        if inputs.shape[-1] != self.w1_q.shape[0]:
+            raise ValueError("the quantized resblock requires matching "
+                             "widths")
+        x = self._dense(_ln_film_swish(self.LayerNorm_0, inputs, scale,
+                                       shift), 1)
+        x = self._dense(_ln_film_swish(self.LayerNorm_1, x, scale, shift), 2)
+        return x + inputs

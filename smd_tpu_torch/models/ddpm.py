@@ -4,9 +4,11 @@
 head) and in the fused serving layout (``fused_attention=True``: each
 layer's LN + attention is one ``fused_ln_attention`` launch;
 ``fused_head=True``: each head resblock is two ``fused_ln_film_swish_dense``
-launches). ``dtype`` is the compute dtype; parameters keep theirs, as in
-Flax. The models take ``(x, cond)`` with ``cond`` the noise level in any of
-the shapes (B,), (B,1), (B,1,1).
+launches), and with the int8 serving head (``quantized_head=True``: each
+head resblock is a ``QuantDenseResBlock``; with ``quantized_head_kernel``
+its two matmuls are two ``w8a8_dense`` launches). ``dtype`` is the compute
+dtype; parameters keep theirs, as in Flax. The models take ``(x, cond)``
+with ``cond`` the noise level in any of the shapes (B,), (B,1), (B,1,1).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 from smd_tpu_torch.models.attention import MultiHeadSelfAttention
 from smd_tpu_torch.models.blocks import (DenseFiLM, DenseResBlock,
                                          FusedDenseResBlock,
+                                         QuantDenseResBlock,
                                          positional_encoding)
 from smd_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
 from smd_tpu_torch.ops import fused_attention as fat
@@ -132,10 +135,9 @@ class TransformerDDPM(nn.Module):
                  quantized_head: bool = False,
                  quantized_head_kernel: bool = False):
         super().__init__()
-        if quantized_head or quantized_head_kernel:
-            raise NotImplementedError(
-                "the int8 head (quantized_head, w8a8_dense) is not ported "
-                "yet: see ROADMAP.md, queue B")
+        if fused_head and quantized_head:
+            raise ValueError("fused_head and quantized_head exclude each "
+                             "other")
         if remat:
             raise NotImplementedError(
                 "remat is a training trade and training is not ported yet: "
@@ -153,6 +155,11 @@ class TransformerDDPM(nn.Module):
             if fused_head:
                 block, name = FusedDenseResBlock(mlp_dims, dtype=dtype), \
                     f"FusedDenseResBlock_{i}"
+            elif quantized_head:
+                block, name = QuantDenseResBlock(
+                    mlp_dims, dtype=dtype,
+                    use_kernel=quantized_head_kernel), \
+                    f"QuantDenseResBlock_{i}"
             else:
                 block, name = DenseResBlock(mlp_dims, mlp_dims, dtype=dtype), \
                     f"DenseResBlock_{i}"
@@ -172,14 +179,16 @@ class TransformerDDPM(nn.Module):
         return self.Dense_1(self.LayerNorm_1(x))
 
     def use_plain_ops(self, plain: bool = True) -> "TransformerDDPM":
-        """Route the fused layers through the kernels' plain versions
-        (``plain=True``) or through the kernels (``False``, the default).
+        """Route the fused and int8 layers through the kernels' plain
+        versions (``plain=True``) or through the kernels (``False``, the
+        default).
 
         The plain route is the yardstick a kernel run is checked against on
         the card; serving never takes it.
         """
         for m in self.modules():
-            if isinstance(m, (FusedTransformerLayer, FusedDenseResBlock)):
+            if isinstance(m, (FusedTransformerLayer, FusedDenseResBlock,
+                              QuantDenseResBlock)):
                 m.plain = plain
         return self
 

@@ -21,18 +21,20 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "library", "launch", "check_cuda_args", "dtype_code",
-           "FLOATS", "SOURCES", "NVCC_FLAGS"]
+           "FLOATS", "INT8", "SOURCES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("errors.cu", "fused_film_resblock.cu", "fused_attention.cu")
+SOURCES = ("errors.cu", "fused_film_resblock.cu", "fused_attention.cu",
+           "quant_matmul.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libsmd_tpu_torch_kernels.so"
 
 FLOATS = (torch.float32, torch.bfloat16)
+INT8 = (torch.int8,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = {
     "smd_fused_ln_film_swish_dense": (8, 7),
     "smd_fused_ln_attention": (8, 7),
+    "smd_w8a8_dense": (8, 7),
 }
 
 _lib = None

@@ -4,9 +4,10 @@ A Flax params tree (nested dicts of arrays, from ``model.init``, a restored
 checkpoint or a pickled bundle; standard or fused layout) maps onto
 ``module.named_parameters()`` by path: the port's modules carry the Flax
 names and layouts, so ``TransformerEncoder_0/Dense_0/kernel`` is the
-parameter ``TransformerEncoder_0.Dense_0.kernel``. Loading checks that every
-leaf of the tree is used and every parameter of the module is set, with
-matching shapes.
+parameter ``TransformerEncoder_0.Dense_0.kernel``. The int8 codes of the
+quantized head (``QuantDenseResBlock_k/w1_q``) are buffers, since they
+cannot be parameters. Loading checks that every leaf of the tree is used and
+every parameter and buffer of the module is set, with matching shapes.
 """
 from __future__ import annotations
 
@@ -35,17 +36,20 @@ def _to_tensor(leaf) -> torch.Tensor:
     arr = np.asarray(leaf)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)   # ml_dtypes bf16 -> exact float32
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array 1-d; keep the shape.
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
 
 
 def load_flax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy every leaf of ``tree`` into the matching parameter of ``module``.
+    """Copy every leaf of ``tree`` into the matching parameter or buffer of
+    ``module``.
 
-    Each parameter keeps its dtype and device. Raises if a leaf has no
-    parameter, a parameter has no leaf, or shapes differ.
+    Each tensor keeps its dtype and device. Raises if a leaf has no tensor,
+    a tensor has no leaf, or shapes differ.
     """
     leaves = flatten(tree)
-    params = dict(module.named_parameters())
+    params = {**dict(module.named_parameters()),
+              **dict(module.named_buffers())}
     unused = sorted(set(leaves) - set(params))
     missing = sorted(set(params) - set(leaves))
     if unused or missing:
@@ -64,6 +68,9 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
 
 def random_flax_params(module: nn.Module, seed: int) -> dict:
     """A Flax-layout numpy tree with the module's shapes, made from ``seed``.
+
+    Standard or fused layout; for the int8 head, quantize a standard-layout
+    tree with ``models.fuse.quantize_head_params``.
 
     Kernels are normal with variance 1/fan_in; biases, LN biases and LN
     scale offsets are small and non-zero, so every term of the model is

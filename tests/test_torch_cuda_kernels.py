@@ -12,6 +12,8 @@ import torch
 
 from smd_tpu_torch.ops import fused_attention as fat
 from smd_tpu_torch.ops import fused_film_resblock as ffr
+from smd_tpu_torch.ops import quant_matmul as qmm
+from smd_tpu_torch.ops.quant import int8_matmul, quantize_weight
 
 pytestmark = pytest.mark.gpu
 
@@ -135,3 +137,120 @@ def test_fused_model_kernels_match_plain(cuda):
         ref = model.use_plain_ops(True)(x, t)
     model.use_plain_ops(False)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)  # float32
+
+
+def _w8a8(dev, M, K, N, x_dtype, leaf_dtype, bias=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xf = torch.randn(M, K, generator=g, device=dev) * 0.8 + 0.3
+    x = (xf * torch.sigmoid(xf)).to(x_dtype)
+    w_q, w_s = quantize_weight(torch.randn(K, N, generator=g, device=dev) /
+                               K ** 0.5)
+    b = torch.randn(N, generator=g, device=dev) * 0.1 if bias else None
+    a_s = x.float().abs().amax() / 127
+    return (x, w_q, w_s.to(leaf_dtype),
+            None if b is None else b.to(leaf_dtype), a_s.to(leaf_dtype))
+
+
+def _w8a8_tol(dtype):
+    # Exact int32 sums and the same float32 epilogue: float32 agrees to an
+    # ulp; a bf16 y to one bf16 rounding.
+    return (1e-6, 1e-6) if dtype == F32 else (1e-6, 2 ** -7)
+
+
+@pytest.mark.parametrize("x_dtype,leaf_dtype", [(F32, F32), (BF16, BF16),
+                                                (BF16, F32), (F32, BF16)])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("M,K,N", [(256, 256, 128), (1000, 2048, 2048),
+                                   (37, 48, 72), (130, 512, 264)])
+def test_w8a8_kernel_matches_plain(cuda, x_dtype, leaf_dtype, bias, M, K,
+                                   N):
+    args = _w8a8(cuda, M, K, N, x_dtype, leaf_dtype, bias)
+    before = qmm.w8a8_dense.launches
+    out = qmm.w8a8_dense(*args)
+    ref = qmm._reference(*args)
+    torch.cuda.synchronize()
+    assert qmm.w8a8_dense.launches == before + 1
+    assert out.dtype == x_dtype and out.shape == (M, N)
+    atol, rtol = _w8a8_tol(x_dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_w8a8_kernel_at_the_bench_shape(cuda):
+    args = _w8a8(cuda, 1000 * 32, 2048, 2048, BF16, BF16)
+    out = qmm.w8a8_dense(*args)
+    ref = qmm._reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_w8a8_tol(BF16)[0],
+                               rtol=_w8a8_tol(BF16)[1])
+
+
+@pytest.mark.parametrize("K", [256, 2048])
+def test_w8a8_kernel_int32_sums_are_exact(cuda, K):
+    """Integer x at a scale of 1 is its own codes; with |x| <= 64 every
+    sum stays below 2**24, so y is the int32 sum itself."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xi = torch.randint(-64, 65, (200, K), generator=g, device=cuda)
+    w_q = torch.randint(-127, 128, (K, 136), generator=g, device=cuda,
+                        dtype=torch.int8)
+    y = qmm.w8a8_dense(xi.float(), w_q, torch.ones(136, device=cuda), None,
+                       1.0)
+    assert torch.equal(y, int8_matmul(xi.to(torch.int8), w_q))
+
+
+def test_w8a8_kernel_leading_dims(cuda):
+    x, w_q, w_s, b, a_s = _w8a8(cuda, 4 * 40, 256, 128, BF16, BF16)
+    flat = qmm.w8a8_dense(x, w_q, w_s, b, a_s)
+    out = qmm.w8a8_dense(x.reshape(4, 40, 256), w_q, w_s, b, a_s)
+    assert out.shape == (4, 40, 128)
+    assert torch.equal(out.reshape(160, 128), flat)
+
+
+def test_w8a8_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, w_q, w_s, b, a_s = _w8a8(cuda, 64, 256, 128, BF16, BF16)
+    with pytest.raises(ValueError, match="static activation scale"):
+        qmm.w8a8_dense(x, w_q, w_s, b)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qmm.w8a8_dense(x[:, :40].contiguous(), w_q[:40].contiguous(), w_s,
+                       b, a_s)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qmm.w8a8_dense(x, w_q[:, :60].contiguous(), w_s[:60].contiguous(),
+                       b[:60].contiguous(), a_s)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.w8a8_dense(x.t().contiguous().t(), w_q, w_s, b, a_s)
+    with pytest.raises(ValueError, match="dtype"):
+        qmm.w8a8_dense(x.half(), w_q, w_s, b, a_s)
+    with pytest.raises(ValueError, match="dtype"):
+        qmm.w8a8_dense(x, w_q.float(), w_s, b, a_s)
+    with pytest.raises(ValueError, match="cpu"):
+        qmm.w8a8_dense(x, w_q.cpu(), w_s, b, a_s)
+
+
+def test_int8_model_kernels_match_plain(cuda):
+    """The quantized TransformerDDPM through the w8a8 kernel against the
+    same model through its plain version: the same codes and sums, so the
+    same float32 outputs up to an ulp."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.fuse import (calibrate_head_act_scales,
+                                           quantize_head_params)
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    kw = dict(data_channels=42, num_layers=2, num_heads=8, num_mlp_layers=2,
+              mlp_dims=256, embed_channels=128)
+    std = get_model("TransformerDDPM", device="cpu", **kw)
+    tree = quantize_head_params(random_flax_params(std, seed=0))
+    model = get_model("TransformerDDPM", device=cuda, quantized_head=True,
+                      quantized_head_kernel=True, **kw)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 32, 42, generator=g, device=cuda)
+    t = torch.rand(4, 1, 1, generator=g, device=cuda)
+    tree = calibrate_head_act_scales(model, tree, [(x, t)])
+    load_flax_params(model, tree)
+    before = qmm.w8a8_dense.launches
+    with torch.no_grad():
+        out = model(x, t)
+        torch.cuda.synchronize()
+        assert qmm.w8a8_dense.launches == before + 4
+        ref = model.use_plain_ops(True)(x, t)
+    model.use_plain_ops(False)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)

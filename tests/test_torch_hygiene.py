@@ -95,3 +95,14 @@ def test_kernel_wrappers_take_no_other_device():
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_cuda_args(torch.device("meta"),
                                x=(None, (1,), _build.FLOATS))
+
+
+def test_w8a8_wrapper_takes_no_other_device():
+    """Only a CPU tensor takes the plain version; any other device that is
+    not CUDA raises instead of computing quietly somewhere else."""
+    from smd_tpu_torch.ops.quant_matmul import w8a8_dense
+    x = torch.empty(32, 64, device="meta")
+    w_q = torch.empty(64, 64, dtype=torch.int8, device="meta")
+    w_s = torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        w8a8_dense(x, w_q, w_s, None, 0.1)
