@@ -5,20 +5,26 @@
 
 The main paths are the flagship TransformerDDPM (6 layers, 8 heads, embed
 128, MLP 2048, two FiLM resblocks of width 2048) at bf16, served by the
-1000-step DDPM ancestral sampler on sequences of 32x42 latents
-(``bench.py``'s workload at a batch of 64 requests), in two layouts: the
-fused serving layout, and the standard einsum trunk with the int8 head
-(``quantized_head_kernel``, ``bench.py``'s ``BENCH_QUANT_KERNEL=1``).
+1000-step DDPM ancestral sampler, in three layouts: on sequences of 32x42
+latents (``bench.py``'s workload at a batch of 64 requests) the fused
+serving layout, and the standard einsum trunk with the int8 head
+(``quantized_head_kernel``, ``bench.py``'s ``BENCH_QUANT_KERNEL=1``); and on
+sequences of 512x42 latents (a 1024-bar piece of two-bar chunks, 16
+requests) the standard layout, whose attention layers route S >= 512 to the
+flash-attention kernel, as the JAX package's do on an accelerator.
 Phases, one flushed line each with its seconds:
 
 1. device: needs ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit.
 2. build: builds (or finds) the CUDA kernels with nvcc.
-3. kernels: each kernel at the sampler's shapes (B=1000) against its plain
-   PyTorch version, plus small float32 cases; times the kernel, the plain
-   version and a one-call PyTorch yardstick with CUDA events.
-4. model: one flagship call on 64x32x42 through the kernels against the same
-   call through the plain versions; the launch counts rise by 6 and 4.
+3. kernels: each kernel at the sampler's shapes (B=1000, or for flash
+   attention B=64 and B=16 at S=512, B=32 at S=1024, causal, and the packed
+   B=1000 S=32 call) against its plain PyTorch version, plus small float32
+   cases; times the kernel, the plain version and a one-call PyTorch
+   yardstick with CUDA events.
+4. model: one fused flagship call on 64x32x42 through the kernels against
+   the same call through the plain versions; the launch counts rise by 6
+   and 4.
 5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests;
    the counts rise by 6000 and 4000; a 20-step run through the kernels
    matches one through the plain versions with the same generator.
@@ -28,6 +34,12 @@ Phases, one flushed line each with its seconds:
    64x32x42 through the w8a8 kernel against the plain version; the w8a8
    count rises by 4.
 7. int8 serve: as 5 with the int8 model; the w8a8 count rises by 4000.
+8. standard model: the flagship's standard-layout weights from a seed,
+   cast to bf16; one call on 16x512x42 through the flash kernel against the
+   plain version, the flash count rising by 6; one call on 64x32x42, which
+   takes the einsum and launches nothing.
+9. standard serve: as 5 on 16 requests of 512x42; the flash count rises by
+   6000.
 
 Before each model call and each 1000-step serve every launch count is set
 to 0, and after it every count is read and checked.
@@ -55,21 +67,29 @@ PEAK_BYTES = 3.35e12
 
 SEQ_LEN, CHANNELS = 32, 42
 BENCH_BATCH = 1000          # bench.py's NUM_SAMPLES: the kernels' shapes
-SERVE_BATCH = 64            # requests served in the serve phase
+SERVE_BATCH = 64            # requests served in the serve phases at S=32
+LONG_SEQ_LEN = 512          # the standard layout's flash path
+LONG_BATCH = 16             # requests served at S=512
 FLAGSHIP = dict(num_layers=6, num_heads=8, num_mlp_layers=2, mlp_dims=2048,
                 embed_channels=128)
 SERVE_STEPS = 1000
 
 
-KERNELS = ("fused_ln_attention", "fused_ln_film_swish_dense", "w8a8_dense")
+KERNELS = ("fused_ln_attention", "fused_ln_film_swish_dense", "w8a8_dense",
+           "flash_attention")
+LAYOUTS = ("fused", "int8", "standard")
 
 
-def per_call_launches(int8=False):
-    """(attention, film, w8a8) launches of one model call. Fused layout: one
-    attention launch per layer and a film launch per head matmul; int8
-    layout: a w8a8 launch per head matmul."""
+def per_call_launches(layout, seq_len=SEQ_LEN):
+    """(attention, film, w8a8, flash) launches of one model call. Fused
+    layout: one attention launch per layer and a film launch per head
+    matmul; int8 layout: a w8a8 launch per head matmul; standard layout: a
+    flash launch per layer at S >= 512, none at S=32 (the einsum)."""
     head = 2 * FLAGSHIP["num_mlp_layers"]
-    return (0, 0, head) if int8 else (FLAGSHIP["num_layers"], head, 0)
+    layers = FLAGSHIP["num_layers"]
+    return {"fused": (layers, head, 0, 0), "int8": (0, 0, head, 0),
+            "standard": (0, 0, 0, layers if seq_len >= LONG_SEQ_LEN
+                         else 0)}[layout]
 
 
 def say(msg):
@@ -285,6 +305,7 @@ def phase_kernels():
         bound_by=bnd[1], library_ms=lib)
     del x, ws, qkv, q, k, v
     records["w8a8_dense"] = _w8a8_kernel_checks(gen)
+    records["flash_attention"] = _flash_kernel_checks(gen)
     torch.cuda.synchronize()
     return records
 
@@ -370,6 +391,88 @@ def _w8a8_kernel_checks(gen):
                 bound_by=bnd[1], library_ms=lib)
 
 
+def _kept_pairs(S, causal, block_diag):
+    """(query, key) pairs one (batch, head) of a flash call keeps: all, the
+    causal triangle, or the squares (triangles) of the groups."""
+    sizes = [S] if not block_diag else \
+        [min(block_diag, S - i) for i in range(0, S, block_diag)]
+    return sum(n * (n + 1) // 2 if causal else n * n for n in sizes)
+
+
+def check_flash(what, out, ref):
+    """float32 within 1e-5 (unit-normal q, k, v; float32 sums in another
+    order); bf16 is the float32 result rounded once: within one bf16 ulp of
+    |ref| plus that 1e-5. Returns (max |err|, max |err| beyond one ulp)."""
+    if not torch.isfinite(out).all():
+        fail(f"{what}: non-finite output")
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        excess = err
+    else:
+        _, e = torch.frexp(ref.float().abs())
+        excess = err - torch.ldexp(torch.ones_like(err), e - 8)
+    if float(excess.max()) > 1e-5:
+        fail(f"{what}: max |err| {float(err.max()):.3e}, "
+             f"{float(excess.max()):.3e} beyond one {out.dtype} ulp + 1e-5")
+    return float(err.max()), float(excess.max())
+
+
+def _flash_kernel_checks(gen):
+    """flash_attention against its plain version, q, k and v unit-normal
+    strided views of one (B, S, 3, H, Dh) projection as the attention layer
+    passes them. The first case is the record's row."""
+    from smd_tpu_torch.ops import flash_attention as fa
+    op = fa.flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, Dh = 8, 16
+    record = None
+    for B, S, causal, dtype, packed in (
+            (64, LONG_SEQ_LEN, False, torch.bfloat16, False),
+            (LONG_BATCH, LONG_SEQ_LEN, False, torch.bfloat16, False),
+            (32, 1024, False, torch.bfloat16, False),
+            (64, LONG_SEQ_LEN, True, torch.bfloat16, False),
+            (BENCH_BATCH, SEQ_LEN, False, torch.bfloat16, True),
+            (64, LONG_SEQ_LEN, False, torch.float32, False)):
+        q, k, v = torch.randn(B, S, 3, H, Dh, generator=gen,
+                              device="cuda").to(dtype).unbind(dim=2)
+        if packed:   # (B/G, G*S, H, Dh) with block_diag=S
+            g = fa.pack_group(B, S)
+            call = (q.reshape(B // g, g * S, H, Dh),
+                    k.reshape(B // g, g * S, H, Dh),
+                    v.reshape(B // g, g * S, H, Dh), causal, S)
+        else:
+            call = (q, k, v, causal, 0)
+        name = (f"flash {'packed ' if packed else ''}B={B} S={S} H={H} "
+                f"Dh={Dh}{' causal' if causal else ''} "
+                f"{str(dtype).split('.')[1]}")
+        out = op(*call)
+        ref = fa._reference_attention(*call)
+        err, excess = check_flash(name, out, ref)
+        t_k = time_ms(lambda: op(*call))
+        t_p = time_ms(lambda: fa._reference_attention(*call), iters=10)
+        Bc, Sc = call[0].shape[:2]
+        pairs = Bc * H * _kept_pairs(Sc, causal, call[4])
+        # q, k, v read once, o written once; per kept pair 2*Dh multiply-adds
+        # for q.k and 2*Dh for p.v, and one exponential.
+        moved = 4 * Bc * Sc * H * Dh * out.element_size()
+        ops = pairs * (4 * Dh + 1)
+        bnd = bound_ms(moved, [(ops, PEAK_FP32_FLOPS)])
+        tc_ms = 1e3 * pairs * 4 * Dh / PEAK_BF16_FLOPS
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=1.0))
+        say(f"{name}: max|err| {err:.3e} ({excess:.3e} beyond one ulp), "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}; bf16 tensor cores {tc_ms:.4f} ms), yardstick "
+            f"scaled_dot_product_attention {lib:.4f} ms")
+        if record is None:
+            record = dict(source="smd_tpu_torch/csrc/flash_attention.cu",
+                          replaces="smd_tpu/ops/flash_attention.py:159",
+                          max_abs_err=err, ms=t_k, plain_ms=t_p,
+                          bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+        del q, k, v, qt, kt, vt, call, out, ref
+    return record
+
+
 def _flagship():
     from smd_tpu_torch.models import get_model
     from smd_tpu_torch.utils.flax_params import (load_flax_params,
@@ -425,12 +528,32 @@ def _int8_flagship():
     return model, model_fn
 
 
+def _standard_flagship():
+    """The flagship in the standard layout (einsum or flash attention, the
+    float DenseResBlock head): weights from a seed in the Flax layout,
+    carried in by the converter, then cast to bf16 as bench.py casts its
+    params."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, dtype=torch.bfloat16,
+                      **FLAGSHIP)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model = model.to(torch.bfloat16).eval()
+
+    def model_fn(x, cond):
+        return model(x.to(torch.bfloat16), cond.to(torch.bfloat16)).float()
+    return model, model_fn
+
+
 def _wrappers():
+    from smd_tpu_torch.ops import flash_attention as fa
     from smd_tpu_torch.ops import fused_attention as fat
     from smd_tpu_torch.ops import fused_film_resblock as ffr
     from smd_tpu_torch.ops import quant_matmul as qmm
     return (fat.fused_ln_attention, ffr.fused_ln_film_swish_dense,
-            qmm.w8a8_dense)
+            qmm.w8a8_dense, fa.flash_attention)
 
 
 def _counts():
@@ -442,36 +565,35 @@ def _reset_counts():
         w.launches = 0
 
 
-def phase_model(model, model_fn, int8=False):
+def phase_model(model, model_fn, layout, batch=SERVE_BATCH,
+                seq_len=SEQ_LEN):
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
-                    device="cuda")
-    cond = torch.rand(SERVE_BATCH, 1, 1, generator=gen, device="cuda") \
+    x = torch.randn(batch, seq_len, CHANNELS, generator=gen, device="cuda")
+    cond = torch.rand(batch, 1, 1, generator=gen, device="cuda") \
         * 0.95 + 0.05
+    expected = per_call_launches(layout, seq_len)
     with torch.no_grad():
         _reset_counts()
         out = model_fn(x, cond)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts != per_call_launches(int8):
-            fail(f"one model call launched (attention, film, w8a8) "
-                 f"{counts}, expected {per_call_launches(int8)}")
+        if counts != expected:
+            fail(f"one {layout} model call launched (attention, film, w8a8, "
+                 f"flash) {counts}, expected {expected}")
         ref = model_fn_plain(model, model_fn, x, cond)
-    if out.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
-            out.dtype != torch.float32:
+    if out.shape != (batch, seq_len, CHANNELS) or out.dtype != torch.float32:
         fail(f"model output {tuple(out.shape)} {out.dtype}")
     # bf16 rounding flips from differently ordered float32 sums, carried
     # through 6 layers and the head.
     scale = float(ref.abs().max())
     err = check_close("model", out, ref, atol=5e-2 * scale, rtol=0.0)
-    say(f"flagship {'int8' if int8 else 'fused'} bf16 call on "
-        f"{SERVE_BATCH}x{SEQ_LEN}x{CHANNELS}: launches (attention, film, "
-        f"w8a8) {counts}, kernels vs plain max|err| {err:.3e} (max|out| "
-        f"{scale:.3f})")
+    say(f"flagship {layout} bf16 call on {batch}x{seq_len}x{CHANNELS}: "
+        f"launches (attention, film, w8a8, flash) {counts}, kernels vs plain "
+        f"max|err| {err:.3e} (max|out| {scale:.3f})")
 
 
 def model_fn_plain(model, model_fn, *args):
-    """model_fn with the fused layers on their plain versions."""
+    """model_fn with the kernels' layers on their plain versions."""
     model.use_plain_ops(True)
     try:
         return model_fn(*args)
@@ -479,15 +601,16 @@ def model_fn_plain(model, model_fn, *args):
         model.use_plain_ops(False)
 
 
-def phase_serve(model, model_fn, smi, int8=False):
+def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
+                seq_len=SEQ_LEN):
     from smd_tpu_torch.diffusion import schedules
     from smd_tpu_torch.sampling import generate
     betas = schedules.noise_schedule(1e-6, 0.01, SERVE_STEPS, "linear")
 
     def serve(betas_, seed, fn=model_fn):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        state, _, _ = generate.sample(fn, betas_, gen, (SEQ_LEN, CHANNELS),
-                                      num_samples=SERVE_BATCH,
+        state, _, _ = generate.sample(fn, betas_, gen, (seq_len, CHANNELS),
+                                      num_samples=batch,
                                       sampling="ddpm", collect_steps=0,
                                       collect_metrics=False, device="cuda")
         return state
@@ -501,18 +624,20 @@ def phase_serve(model, model_fn, smi, int8=False):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _counts()
-        expected = tuple(SERVE_STEPS * n for n in per_call_launches(int8))
+        expected = tuple(SERVE_STEPS * n
+                         for n in per_call_launches(layout, seq_len))
         if not torch.isfinite(state).all():
             fail("served samples are not finite")
-        if state.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS):
+        if state.shape != (batch, seq_len, CHANNELS):
             fail(f"served samples have shape {tuple(state.shape)}")
         if counts != expected:
-            fail(f"the {SERVE_STEPS}-step sample launched (attention, film, "
-                 f"w8a8) {counts}, expected {expected}")
-        say(f"served {'int8' if int8 else 'fused'}: {SERVE_BATCH} requests "
-            f"x {SERVE_STEPS} DDPM steps in {seconds:.3f} s = "
-            f"{SERVE_BATCH / seconds:.2f} seqs/s on {smi}; launches "
-            f"(attention, film, w8a8) {counts}")
+            fail(f"the {SERVE_STEPS}-step {layout} sample launched "
+                 f"(attention, film, w8a8, flash) {counts}, expected "
+                 f"{expected}")
+        say(f"served {layout}: {batch} requests of {seq_len}x{CHANNELS} x "
+            f"{SERVE_STEPS} DDPM steps in {seconds:.3f} s = "
+            f"{batch / seconds:.2f} seqs/s on {smi}; launches (attention, "
+            f"film, w8a8, flash) {counts}")
 
         betas20 = schedules.noise_schedule(1e-6, 0.01, 20, "linear")
         ours = serve(betas20, 4)
@@ -521,8 +646,8 @@ def phase_serve(model, model_fn, smi, int8=False):
     # bf16 flips as in the model phase, carried over 20 steps; x0 is
     # clipped to [-1, 1] and the posterior mean contracts each step.
     err = check_close("20-step sample", ours, ref, atol=5e-2, rtol=5e-2)
-    say(f"20-step sample kernels vs plain, same generator: max|err| "
-        f"{err:.3e} (max|state| {float(ref.abs().max()):.3f})")
+    say(f"20-step {layout} sample kernels vs plain, same generator: "
+        f"max|err| {err:.3e} (max|state| {float(ref.abs().max()):.3f})")
     return counts
 
 
@@ -533,20 +658,29 @@ def main():
         phase_build()
     with Phase("3 kernels"):
         records = phase_kernels()
+    served = []
     with Phase("4 model"):
         model, model_fn = _flagship()
-        phase_model(model, model_fn)
+        phase_model(model, model_fn, "fused")
     with Phase("5 serve"):
-        fused_counts = phase_serve(model, model_fn, smi)
+        served.append(phase_serve(model, model_fn, smi, "fused"))
     del model, model_fn
     with Phase("6 int8 model"):
         model, model_fn = _int8_flagship()
-        phase_model(model, model_fn, int8=True)
+        phase_model(model, model_fn, "int8")
     with Phase("7 int8 serve"):
-        int8_counts = phase_serve(model, model_fn, smi, int8=True)
-    # Each kernel's launches in the serve of the path that runs it.
-    for name, n_fused, n_int8 in zip(KERNELS, fused_counts, int8_counts):
-        records[name]["launches"] = n_fused + n_int8
+        served.append(phase_serve(model, model_fn, smi, "int8"))
+    del model, model_fn
+    with Phase("8 standard model"):
+        model, model_fn = _standard_flagship()
+        phase_model(model, model_fn, "standard", LONG_BATCH, LONG_SEQ_LEN)
+        phase_model(model, model_fn, "standard")
+    with Phase("9 standard serve"):
+        served.append(phase_serve(model, model_fn, smi, "standard",
+                                  LONG_BATCH, LONG_SEQ_LEN))
+    # Each kernel's launches in the serves of the paths that run it.
+    for i, name in enumerate(KERNELS):
+        records[name]["launches"] = sum(c[i] for c in served)
     kernels = [dict(name=name, route="cuda", **records[name])
                for name in KERNELS]
     say(f"total {time.perf_counter() - T_START:.1f} s")

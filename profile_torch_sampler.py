@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of a DDPM sampler step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_sampler.py [--batch 64] [--steps 20]
-                                     [--quantized_head_kernel]
+    python3 profile_torch_sampler.py [--layout fused|int8|standard]
+                                     [--batch 64] [--seq_len 32] [--steps 20]
 
-Serves the flagship fused bf16 TransformerDDPM of ``chip_smoke.py`` (or,
-with ``--quantized_head_kernel``, its int8-head model: the standard einsum
-trunk and the w8a8 kernel, quantized and calibrated as there) with
-``generate.sample(sampling="ddpm")`` for ``--steps`` steps, first without
-and then under ``torch.profiler``, and prints: wall seconds per step (host
-clock around a synchronised run), the device's busy time per step (union of
-the kernels' intervals in the trace) and its idle share, and the kernels by
-device time. The last line is one JSON object with those numbers. Needs a
-CUDA device.
+Serves a bf16 flagship TransformerDDPM of ``chip_smoke.py`` on
+``--seq_len``x42 latents with ``generate.sample(sampling="ddpm")`` for
+``--steps`` steps, first without and then under ``torch.profiler``. The
+layouts: ``fused`` (the fused attention and film kernels), ``int8`` (the
+standard einsum trunk and the w8a8 kernel, quantized and calibrated as
+there) and ``standard`` (the einsum trunk, or the flash-attention kernel at
+``--seq_len`` >= 512, and the float head). It prints: wall seconds per step
+(host clock around a synchronised run), the device's busy time per step
+(union of the kernels' intervals in the trace) and its idle share, and the
+kernels by device time. The last line is one JSON object with those
+numbers. Needs a CUDA device.
 """
 import argparse
 import json
@@ -24,13 +26,13 @@ import torch
 import chip_smoke
 
 
-def _serve(model_fn, steps, batch, seed):
+def _serve(model_fn, steps, batch, seq_len, seed):
     from smd_tpu_torch.diffusion import schedules
     from smd_tpu_torch.sampling import generate
     betas = schedules.noise_schedule(1e-6, 0.01, steps, "linear")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return generate.sample(model_fn, betas, gen,
-                           (chip_smoke.SEQ_LEN, chip_smoke.CHANNELS),
+                           (seq_len, chip_smoke.CHANNELS),
                            num_samples=batch, sampling="ddpm",
                            collect_steps=0, collect_metrics=False,
                            device="cuda")[0]
@@ -53,26 +55,28 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--quantized_head_kernel", action="store_true",
-                    help="serve the int8 head through the w8a8 kernel")
+    ap.add_argument("--seq_len", type=int, default=chip_smoke.SEQ_LEN)
+    ap.add_argument("--layout", choices=chip_smoke.LAYOUTS, default="fused",
+                    help="fused kernels, the int8 head through w8a8, or the "
+                         "standard layout (flash attention at S >= 512)")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
-    if args.quantized_head_kernel:
-        _, model_fn = chip_smoke._int8_flagship()
-    else:
-        _, model_fn = chip_smoke._flagship()
+    _, model_fn = {"fused": chip_smoke._flagship,
+                   "int8": chip_smoke._int8_flagship,
+                   "standard": chip_smoke._standard_flagship}[args.layout]()
+    run = (args.steps, args.batch, args.seq_len)
     with torch.no_grad():
-        _serve(model_fn, 3, args.batch, 0)
+        _serve(model_fn, 3, args.batch, args.seq_len, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _serve(model_fn, args.steps, args.batch, 1)
+        _serve(model_fn, *run, 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            _serve(model_fn, args.steps, args.batch, 1)
+            _serve(model_fn, *run, 1)
             torch.cuda.synchronize()
 
     per_kernel = defaultdict(lambda: [0, 0.0])
@@ -91,9 +95,8 @@ def main():
     busy = _busy_us(intervals) / 1e6 / args.steps
     span = (max(e for _, e in intervals + host) -
             min(s for s, _ in intervals + host)) / 1e6 / args.steps
-    layout = "int8 head" if args.quantized_head_kernel else "fused"
-    print(f"{smi}; {layout}, batch {args.batch}, {args.steps} steps",
-          flush=True)
+    print(f"{smi}; {args.layout}, batch {args.batch}, seq_len "
+          f"{args.seq_len}, {args.steps} steps", flush=True)
     print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
           f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
           f"idle share {1 - busy / span:.3f}")
@@ -103,8 +106,8 @@ def main():
         print(f"{us / 1e3 / args.steps:14.4f} {calls / args.steps:10.1f}  "
               f"{name[:110]}")
     print(json.dumps({
-        "card": smi, "layout": layout, "batch": args.batch,
-        "steps": args.steps,
+        "card": smi, "layout": args.layout, "batch": args.batch,
+        "seq_len": args.seq_len, "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
         "profiled_span_ms_per_step": span * 1e3,
         "device_busy_ms_per_step": busy * 1e3,

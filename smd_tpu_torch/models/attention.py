@@ -1,9 +1,11 @@
 """Multi-head self-attention (port of ``smd_tpu/models/attention.py``).
 
-The non-decode einsum path of the standard layout. On an accelerator the
-JAX module routes S >= 512 to its flash-attention Pallas kernel; that kernel
-is not ported yet (``ROADMAP.md`` queue B), so on a GPU longer sequences
-raise here; on the CPU both packages take the einsum path.
+The non-decode path, routed as the JAX layer routes it: on an accelerator
+(here a CUDA tensor) sequences of at least ``use_flash_min_len`` positions
+that ``flash_attention.supported`` takes go to the flash-attention kernel;
+otherwise, with ``use_packed``, float32/bf16 short sequences go to
+``packed_short_seq_attention``; everything else, and every CPU tensor, takes
+the einsum path.
 """
 from __future__ import annotations
 
@@ -11,12 +13,28 @@ import torch
 from torch import nn
 
 from smd_tpu_torch.models.layers import DenseGeneral
+from smd_tpu_torch.ops import flash_attention as fa
 
-__all__ = ["MultiHeadSelfAttention"]
+__all__ = ["MultiHeadSelfAttention", "route"]
 
-# Sequences at least this long route to flash attention in the JAX layer
-# (its use_flash_min_len default) when on an accelerator.
-_FLASH_MIN_LEN = 512
+
+def _on_accelerator(x: torch.Tensor) -> bool:
+    """The JAX layer's ``jax.default_backend() != "cpu"``."""
+    return x.device.type == "cuda"
+
+
+def route(seq_len: int, head_dim: int, dtype: torch.dtype,
+          on_accelerator: bool, use_flash_min_len: int = 512,
+          use_packed: bool = False) -> str:
+    """The JAX layer's choice of "flash", "packed" or "einsum"; "packed"
+    still falls to the einsum when ``pack_group`` finds no group."""
+    if seq_len >= use_flash_min_len and on_accelerator and \
+            fa.supported(seq_len, head_dim, dtype):
+        return "flash"
+    if use_packed and on_accelerator and \
+            dtype in (torch.float32, torch.bfloat16):
+        return "packed"
+    return "einsum"
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -24,33 +42,48 @@ class MultiHeadSelfAttention(nn.Module):
 
     features: model width (qkv width == out width == features).
     causal: apply a causal mask (TransformerMDN) or none (TransformerDDPM).
+    use_flash_min_len, use_packed: the JAX layer's routing (see ``route``).
+    ``plain=True`` sends the flash and packed routes to the kernel's plain
+    version wherever the tensors lie: the yardstick the kernel is checked
+    against, never the serving path.
     """
 
-    def __init__(self, features: int, num_heads: int, causal: bool = False):
+    def __init__(self, features: int, num_heads: int, causal: bool = False,
+                 use_flash_min_len: int = 512, use_packed: bool = False):
         super().__init__()
         if features % num_heads:
             raise ValueError("features must divide num_heads")
         self.features = features
         self.num_heads = num_heads
         self.causal = causal
+        self.use_flash_min_len = use_flash_min_len
+        self.use_packed = use_packed
+        self.plain = False
         dh = features // num_heads
         self.qkv = DenseGeneral((features,), (3, num_heads, dh))
         self.out = DenseGeneral((num_heads, dh), (features,))
 
     def forward(self, x):
         S = x.shape[1]
-        if S >= _FLASH_MIN_LEN and x.device.type != "cpu":
-            raise NotImplementedError(
-                f"S={S} routes to flash_attention, which is not ported yet "
-                "(ROADMAP.md, queue B)")
         dh = self.features // self.num_heads
         q, k, v = self.qkv(x).unbind(dim=-3)  # each (B, S, H, Dh)
         q = q / torch.tensor(dh ** 0.5, dtype=q.dtype)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        if self.causal:
-            mask = torch.ones((S, S), dtype=torch.bool,
-                              device=x.device).tril()
-            scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-        weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        how = route(S, dh, q.dtype, _on_accelerator(x),
+                    self.use_flash_min_len, self.use_packed)
+        out = None
+        if how == "flash":
+            op = fa._reference_attention if self.plain else fa.flash_attention
+            out = op(q, k, v, self.causal)
+        elif how == "packed":
+            out = fa.packed_short_seq_attention(q, k, v, self.causal,
+                                                plain=self.plain)
+        if out is None:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+            if self.causal:
+                mask = torch.ones((S, S), dtype=torch.bool,
+                                  device=x.device).tril()
+                scores = scores.masked_fill(~mask,
+                                            torch.finfo(scores.dtype).min)
+            weights = torch.softmax(scores, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(out)

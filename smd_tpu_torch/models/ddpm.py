@@ -1,7 +1,9 @@
 """Transformer epsilon-predictor (port of ``smd_tpu/models/ddpm.py``).
 
-``TransformerDDPM`` in the standard layout (einsum attention, DenseResBlock
-head) and in the fused serving layout (``fused_attention=True``: each
+``TransformerDDPM`` in the standard layout (DenseResBlock head; each
+layer's attention is the einsum, or one ``flash_attention`` launch on a
+CUDA tensor of at least 512 positions, as the JAX layer routes it), in the
+fused serving layout (``fused_attention=True``: each
 layer's LN + attention is one ``fused_ln_attention`` launch;
 ``fused_head=True``: each head resblock is two ``fused_ln_film_swish_dense``
 launches), and with the int8 serving head (``quantized_head=True``: each
@@ -179,16 +181,16 @@ class TransformerDDPM(nn.Module):
         return self.Dense_1(self.LayerNorm_1(x))
 
     def use_plain_ops(self, plain: bool = True) -> "TransformerDDPM":
-        """Route the fused and int8 layers through the kernels' plain
-        versions (``plain=True``) or through the kernels (``False``, the
-        default).
+        """Route the fused and int8 layers, and the attention layers' flash
+        route, through the kernels' plain versions (``plain=True``) or
+        through the kernels (``False``, the default).
 
         The plain route is the yardstick a kernel run is checked against on
         the card; serving never takes it.
         """
         for m in self.modules():
             if isinstance(m, (FusedTransformerLayer, FusedDenseResBlock,
-                              QuantDenseResBlock)):
+                              QuantDenseResBlock, MultiHeadSelfAttention)):
                 m.plain = plain
         return self
 

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("errors.cu", "fused_film_resblock.cu", "fused_attention.cu",
-           "quant_matmul.cu")
+           "quant_matmul.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +44,7 @@ _LAUNCHERS = {
     "smd_fused_ln_film_swish_dense": (8, 7),
     "smd_fused_ln_attention": (8, 7),
     "smd_w8a8_dense": (8, 7),
+    "smd_flash_attention": (4, 16),
 }
 
 _lib = None

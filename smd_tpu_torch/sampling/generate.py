@@ -37,18 +37,30 @@ def sample(model_fn,
            sigmas,
            generator: Optional[torch.Generator],
            sample_shape,
-           num_samples: int = 2400,
-           sampling: str = "ddpm",
+           num_samples=2400,
+           sampling="ald",
+           epsilon=1e-3,
+           steps=100,
+           denoise=True,
            infill_samples=None,
            infill_masks=None,
            collect_steps: Optional[int] = None,
            collect_metrics: bool = True,
+           ddim_steps: int = 50,
+           ddim_eta: float = 0.0,
+           distill_grid=None,
+           ensure_snapshots: bool = False,
+           *,
            device=None):
     """Generate samples with the chosen dynamics on ``device``.
 
-    ``sigmas`` are the DDPM betas for ``sampling="ddpm"``. ``generator``
-    (on ``device``) draws the initial state, then the sampler's noise.
-    ``device`` is ``cuda`` unless the caller passes ``"cpu"``.
+    The JAX package's signature, parameters and defaults in its order, then
+    ``device``: ``cuda`` unless the caller passes ``"cpu"``. ``sigmas`` are
+    the DDPM betas for ``sampling="ddpm"``. ``generator`` (on ``device``)
+    draws the initial state, then the sampler's noise. ``epsilon``,
+    ``steps``, ``denoise``, ``ddim_steps``, ``ddim_eta``, ``distill_grid``
+    and ``ensure_snapshots`` belong to the samplers not ported yet, which
+    raise (the default ``"ald"`` among them).
 
     Returns (generated, collection, metrics), the JAX package's 3-tuple.
     """

@@ -254,3 +254,145 @@ def test_int8_model_kernels_match_plain(cuda):
         ref = model.use_plain_ops(True)(x, t)
     model.use_plain_ops(False)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+# -- flash_attention ----------------------------------------------------------
+
+def _qkv(dev, B, S, H, Dh, dtype, seed=0, strided=False):
+    """Unit-normal q, k, v; ``strided``: views of one (B, S, 3, H, Dh)
+    projection, as ``unbind`` gives them to the attention layer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        qkv = torch.randn(B, S, 3, H, Dh, generator=g, device=dev)
+        return qkv.to(dtype).unbind(dim=2)
+    return tuple(torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+                 for _ in range(3))
+
+
+# float32: the JAX tests' tolerance for unit-normal q, k, v. At Dh=64 the
+# scores reach |s|~40, and two orders of a 64-term float32 dot product set
+# them a few 1e-6 apart.
+FLASH_F32_ATOL = 2e-5
+
+
+def _assert_flash_close(out, ref):
+    """float32 within FLASH_F32_ATOL; bf16 is the float32 result rounded
+    once, so within one bf16 ulp of |ref| plus FLASH_F32_ATOL, the most the
+    float32 results may differ before the rounding."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == F32:
+        assert float(err.max()) <= FLASH_F32_ATOL, float(err.max())
+        return
+    _, e = torch.frexp(ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(err), e - 8)
+    excess = err - ulp
+    i = int(excess.argmax())
+    assert float(excess.max()) <= FLASH_F32_ATOL, (
+        f"max |err| {float(err.max()):.3e}; worst beyond one ulp: |err| "
+        f"{float(err.flatten()[i]):.3e} at |ref| "
+        f"{float(ref.float().abs().flatten()[i]):.3e}")
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,S,H,Dh,causal,block_diag", [
+    (2, 512, 8, 16, False, 0),      # the served shape, fewer items
+    (2, 384, 2, 16, True, 0),       # a 128-row q tile over two k tiles
+    (1, 200, 2, 32, True, 0),       # ragged: S a multiple of no tile
+    (2, 384, 2, 16, False, 96),     # groups that leave whole k tiles out
+    (1, 384, 2, 64, True, 96),      # causal and groups together
+    (3, 256, 4, 8, False, 32),      # many groups per q tile
+    (1, 1024, 2, 64, False, 0),
+    (4, 64, 2, 16, True, 0),        # one partial q tile
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, Dh, causal,
+                                    block_diag):
+    from smd_tpu_torch.ops import flash_attention as fa
+    q, k, v = _qkv(cuda, B, S, H, Dh, dtype)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal, block_diag)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _assert_flash_close(out, fa._reference_attention(q, k, v, causal,
+                                                     block_diag))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_reads_strided_views(cuda, dtype, causal):
+    from smd_tpu_torch.ops import flash_attention as fa
+    q, k, v = _qkv(cuda, 3, 512, 8, 16, dtype, strided=True)
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v, causal)
+    ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal)
+    assert torch.equal(out, ref)
+    _assert_flash_close(out, fa._reference_attention(q, k, v, causal))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_packed_shape(cuda, dtype, causal):
+    """B=1000, S=32 packs G=8 items: a (125, 256, 8, 16) call with
+    block_diag=32, the same function as attention over each item."""
+    from smd_tpu_torch.ops import flash_attention as fa
+    q, k, v = _qkv(cuda, 1000, 32, 8, 16, dtype, strided=True)
+    before = fa.flash_attention.launches
+    out = fa.packed_short_seq_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _assert_flash_close(out, fa._reference_attention(q, k, v, causal))
+    assert fa.packed_short_seq_attention(q[:7], k[:7], v[:7]) is None
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from smd_tpu_torch.ops import flash_attention as fa
+    q, k, v = _qkv(cuda, 1, 128, 2, 12, BF16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 128, 2, 16, BF16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention(q, k[:, :64], v)
+    with pytest.raises(ValueError, match="contiguous along Dh"):
+        fa.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           v)
+    wide = torch.zeros(1, 128, 2, 20, dtype=BF16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, wide[..., :16], v)
+    with pytest.raises(ValueError, match="cpu"):
+        fa.flash_attention(q, k.cpu(), v)
+    assert fa.flash_attention.launches == before
+
+
+def test_standard_model_flash_route_matches_plain(cuda):
+    """The standard-layout TransformerDDPM at S=512 through the kernel
+    against the same model through its plain version (float32), one launch
+    per layer; at S=32 the layers take the einsum and launch nothing."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.ops import flash_attention as fa
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device=cuda, data_channels=42,
+                      num_layers=2, num_heads=8, num_mlp_layers=1,
+                      mlp_dims=256, embed_channels=128)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 512, 42, generator=g, device=cuda)
+    t = torch.rand(2, 1, 1, generator=g, device=cuda)
+    with torch.no_grad():
+        before = fa.flash_attention.launches
+        out = model(x, t)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 2
+        ref = model.use_plain_ops(True)(x, t)
+        model.use_plain_ops(False)
+        assert fa.flash_attention.launches == before + 2
+        model(x[:, :32], t)
+        assert fa.flash_attention.launches == before + 2
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)  # float32
