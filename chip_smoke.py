@@ -16,12 +16,17 @@ Phases, one flushed line each with its seconds:
 
 1. device: needs ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit.
-2. build: builds (or finds) the CUDA kernels with nvcc.
+2. build: builds (or finds) the CUDA kernels with nvcc; prints ptxas's
+   registers, shared memory and spills for the film and flash kernels, and
+   any spill or serialized wgmma in any kernel.
 3. kernels: each kernel at the sampler's shapes (B=1000, or for flash
    attention B=64 and B=16 at S=512, B=32 at S=1024, causal, and the packed
    B=1000 S=32 call) against its plain PyTorch version, plus small float32
    cases; times the kernel, the plain version and a one-call PyTorch
-   yardstick with CUDA events.
+   yardstick per eager call between CUDA events (the records' times), and
+   the kernel and the yardstick also as calls captured in a CUDA graph and
+   replayed (device time alone, no host launch); the film and flash
+   kernels beside their first versions' times.
 4. model: one fused flagship call on 64x32x42 through the kernels against
    the same call through the plain versions; the launch counts rise by 6
    and 4.
@@ -64,6 +69,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Special-function (MUFU) results a second: 132 SMs x 16 a clock at ~1.8
+# GHz; the FlashAttention-3 paper (Shah et al. 2024) gives 3.9 TFLOPS of
+# special functions for the H100 SXM5.
+PEAK_SFU = 3.9e12
+
+# The first versions' times (PERF.md section 6, chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700 W, eager calls as time_ms takes them), printed
+# beside the redesigned kernels' times.
+FIRST_VERSION_MS = {"film": 2.643, "film+residual": 2.873,
+                    "flash B=64 S=512": 0.320, "flash B=16 S=512": 0.090,
+                    "flash B=32 S=1024": 0.649, "flash B=64 S=512 causal":
+                    0.209, "flash packed B=1000 S=32": 0.080}
 
 SEQ_LEN, CHANNELS = 32, 42
 BENCH_BATCH = 1000          # bench.py's NUM_SAMPLES: the kernels' shapes
@@ -115,7 +132,9 @@ def check_close(what, got, ref, atol, rtol):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Median ms of ``iters`` calls, each between two CUDA events."""
+    """Median ms of ``iters`` eager calls, each between two CUDA events:
+    the records' times, the host's launch included where it exceeds the
+    device's time."""
     for _ in range(warmup):
         fn()
     pairs = []
@@ -130,11 +149,41 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def replay_ms(fn, iters=20, reps=5):
+    """Device ms of one call alone: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between two CUDA events; the median
+    replay over ``iters``. Printed beside ``time_ms``, never recorded."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up off the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def bound_ms(bytes_moved, ops_by_peak):
-    """Least time: the larger of bytes over the memory rate and the
-    operations over their peak rates. ``ops_by_peak`` is [(ops, peak)]."""
+    """Least time: the largest of bytes over the memory rate and each unit's
+    operations over its peak rate (the units run at the same time).
+    ``ops_by_peak`` is [(ops, peak)]."""
     t_bytes = bytes_moved / PEAK_BYTES
-    t_ops = sum(ops / peak for ops, peak in ops_by_peak)
+    t_ops = max(ops / peak for ops, peak in ops_by_peak)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -176,15 +225,32 @@ def phase_build():
     from smd_tpu_torch.ops import _build
     path, seconds, log = _build.build()
     _build.library()
+    # Spills, and wgmma serialized by ptxas (warning C7515).
     spills = [ln.strip() for ln in log.splitlines()
-              if "spill" in ln and not ln.strip().startswith(
-                  "ptxas info    : Used") and " 0 bytes spill stores" not in ln]
+              if ("spill" in ln and not ln.strip().startswith(
+                  "ptxas info    : Used") and " 0 bytes spill stores" not in ln)
+              or "Performance Loss" in ln]
     kernels = sum("Compiling entry function" in ln for ln in log.splitlines())
     say(f"built {path.relative_to(_build.BUILD_DIR.parent.parent)} in "
         f"{seconds:.1f} s ({'reused' if seconds == 0 else 'nvcc'}; "
         f"{kernels} kernel entries)")
     for ln in spills:
         say(f"ptxas: {ln}")
+    # The redesigned kernels' registers, shared memory and spills.
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" not in ln:
+            continue
+        name = ln.split("'")[1]
+        kernel = next((k for k in ("film_gemm_kernel", "row_stats_kernel",
+                                   "flash_bf16_kernel") if k in name), None)
+        if kernel is None:
+            continue
+        # The mangled template arguments, e.g. "ILi16EE" for Dh=16.
+        inst = name[name.index(kernel) + len(kernel):].split("EE")[0] + "EE"
+        info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "Used" in x or "spill" in x]
+        say(f"ptxas {kernel}{inst}: {'; '.join(info)}")
 
 
 def _film_inputs(B, S, K, N, dtype, gen):
@@ -220,6 +286,9 @@ def phase_kernels():
     op = ffr.fused_ln_film_swish_dense
     B, S, K, N = BENCH_BATCH, SEQ_LEN, 2048, 2048
     x, scale, shift, w, b, res = _film_inputs(B, S, K, N, torch.bfloat16, gen)
+    # The yardstick: the product alone on the prologue's bf16 output.
+    h = torch.nn.functional.silu(torch.nn.functional.layer_norm(
+        x.float(), (K,), eps=1e-6) * scale + shift).to(w.dtype)
     errs, ms, plain, bounds = [], [], [], []
     for r in (None, res):
         name = "film" + ("+residual" if r is not None else "")
@@ -229,6 +298,7 @@ def phase_kernels():
         # the other side of a bf16 rounding boundary (2**-8 relative).
         errs.append(check_close(name, out, ref, atol=2e-2, rtol=1e-2))
         ms.append(time_ms(lambda: op(x, scale, shift, w, b, r)))
+        replayed = replay_ms(lambda: op(x, scale, shift, w, b, r))
         plain.append(time_ms(lambda: ffr._reference(x, scale, shift, w, b, r),
                              iters=10))
         M = B * S
@@ -236,17 +306,17 @@ def phase_kernels():
             (2 * M * N if r is not None else 0)
         # The product on the bf16 tensor cores; the float32 prologue is ~10
         # operations per element of x (LN statistics and normalisation,
-        # FiLM affine, swish).
+        # FiLM affine, swish) on the CUDA cores.
         bounds.append(bound_ms(moved, [(2 * M * K * N, PEAK_BF16_FLOPS),
                                        (10 * M * K, PEAK_FP32_FLOPS)]))
         say(f"{name} B={B} S={S} K={K} N={N} bf16: max|err| {errs[-1]:.3e}, "
-            f"kernel {ms[-1]:.4f} ms, plain {plain[-1]:.4f} ms, bound "
-            f"{bounds[-1][0]:.4f} ms ({bounds[-1][1]})")
-    h = torch.nn.functional.silu(torch.nn.functional.layer_norm(
-        x.float(), (K,), eps=1e-6) * scale + shift).to(w.dtype)
+            f"kernel {ms[-1]:.4f} ms ({replayed:.4f} ms replayed; first "
+            f"version {FIRST_VERSION_MS[name]} ms), plain {plain[-1]:.4f} ms, "
+            f"bound {bounds[-1][0]:.4f} ms ({bounds[-1][1]})")
     lib = time_ms(lambda: torch.matmul(h, w))
     say(f"film yardstick torch.matmul bf16 ({B * S}x{K})@({K}x{N}): "
-        f"{lib:.4f} ms")
+        f"{lib:.4f} ms ({replay_ms(lambda: torch.matmul(h, w)):.4f} ms "
+        f"replayed)")
     xs, scs, shs, ws, bs, rs = _film_inputs(4, 32, 256, 256, torch.float32,
                                             gen)
     err32 = check_close("film float32", op(xs, scs, shs, ws, bs, rs),
@@ -271,7 +341,6 @@ def phase_kernels():
     ref = fat._reference(x, *ws, H, False)
     # float32 inside, bf16 out: one bf16 rounding of |y|.
     err = check_close("attention", out, ref, atol=2e-2, rtol=1e-2)
-    t_k = time_ms(lambda: op(x, *ws, H, False))
     t_p = time_ms(lambda: fat._reference(x, *ws, H, False), iters=10)
     R = B * S
     ops = (2 * R * E * 3 * E + 2 * 2 * B * H * S * S * Dh +
@@ -283,12 +352,15 @@ def phase_kernels():
         @ ws[0].float() + ws[1].float()).to(x.dtype)
     q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
                for t in qkv.split(E, dim=-1))
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v))
+    kernel, library = (
+        lambda: op(x, *ws, H, False),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    t_k, lib = time_ms(kernel), time_ms(library)
     say(f"attention B={B} S={S} E={E} H={H} bf16: max|err| {err:.3e}, "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}), yardstick scaled_dot_product_attention bf16 "
-        f"{lib:.4f} ms")
+        f"kernel {t_k:.4f} ms ({replay_ms(kernel):.4f} ms replayed), plain "
+        f"{t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), yardstick "
+        f"scaled_dot_product_attention bf16 {lib:.4f} ms "
+        f"({replay_ms(library):.4f} ms replayed)")
     for (b_, s_, e_, h_, causal) in ((8, 32, 128, 8, True),
                                      (6, 20, 64, 2, False)):
         xs, wss = _attn_inputs(b_, s_, e_, torch.float32, gen)
@@ -351,7 +423,6 @@ def _w8a8_kernel_checks(gen):
     out = op(x, w_q, w_s, b, a_s)
     ref = qmm._reference(x, w_q, w_s, b, a_s)
     err = check_close("w8a8", out, ref, atol=1e-6, rtol=2 ** -7)
-    t_k = time_ms(lambda: op(x, w_q, w_s, b, a_s))
     t_p = time_ms(lambda: qmm._reference(x, w_q, w_s, b, a_s), iters=10)
     moved = 2 * M * K + K * N + 2 * 2 * N + 2 + 2 * M * N
     # The int8 products on the tensor cores; on the CUDA cores the quantize
@@ -360,7 +431,9 @@ def _w8a8_kernel_checks(gen):
     bnd = bound_ms(moved, [(2 * M * K * N, PEAK_INT8_OPS),
                            (4 * M * K + 3 * M * N, PEAK_FP32_FLOPS)])
     x_q = int8_codes(x.float(), a_s.float())
-    lib = time_ms(lambda: torch._int_mm(x_q, w_q))
+    def kernel():
+        return op(x, w_q, w_s, b, a_s)
+    t_k, lib = time_ms(kernel), time_ms(lambda: torch._int_mm(x_q, w_q))
     if not torch.equal(torch._int_mm(x_q, w_q).float(),
                        int8_matmul(x_q, w_q)):
         fail("torch._int_mm disagrees with the exact int32 sums")
@@ -369,8 +442,9 @@ def _w8a8_kernel_checks(gen):
     w_cm = w_q.t().contiguous().t()
     lib_cm = time_ms(lambda: torch._int_mm(x_q, w_cm))
     say(f"w8a8 M={M} K={K} N={N} bf16: max|err| {err:.3e} (max|y| "
-        f"{float(ref.float().abs().max()):.3f}), kernel {t_k:.4f} ms, plain "
-        f"{t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), yardstick "
+        f"{float(ref.float().abs().max()):.3f}), kernel {t_k:.4f} ms "
+        f"({replay_ms(kernel):.4f} ms replayed), plain {t_p:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}), yardstick "
         f"torch._int_mm on the quantized operands {lib:.4f} ms "
         f"({lib_cm:.4f} ms with w_q column-major)")
     del x, x_q, w_cm, out, ref
@@ -448,22 +522,44 @@ def _flash_kernel_checks(gen):
         out = op(*call)
         ref = fa._reference_attention(*call)
         err, excess = check_flash(name, out, ref)
-        t_k = time_ms(lambda: op(*call))
         t_p = time_ms(lambda: fa._reference_attention(*call), iters=10)
         Bc, Sc = call[0].shape[:2]
         pairs = Bc * H * _kept_pairs(Sc, causal, call[4])
-        # q, k, v read once, o written once; per kept pair 2*Dh multiply-adds
-        # for q.k and 2*Dh for p.v, and one exponential.
+        # q, k, v read once, o written once.
         moved = 4 * Bc * Sc * H * Dh * out.element_size()
-        ops = pairs * (4 * Dh + 1)
-        bnd = bound_ms(moved, [(ops, PEAK_FP32_FLOPS)])
-        tc_ms = 1e3 * pairs * 4 * Dh / PEAK_BF16_FLOPS
+        extra = ""
+        if dtype == torch.bfloat16:
+            # What the function needs per kept pair: 2*Dh operations for
+            # q.k and 2*Dh for p.v on the bf16 tensor cores, one
+            # exponential on the special-function units.
+            bnd = bound_ms(moved, [(pairs * 4 * Dh, PEAK_BF16_FLOPS),
+                                   (pairs, PEAK_SFU)])
+            # The design's own extra work, not in the bound: the second
+            # p.v product (p in two bf16 terms) and ~3 float32 operations
+            # per pair to split p.
+            extra = (f", the two-term split's extra work "
+                     f"{1e3 * pairs * 2 * Dh / PEAK_BF16_FLOPS:.4f} ms on the "
+                     f"tensor cores + {1e3 * pairs * 3 / PEAK_FP32_FLOPS:.4f}"
+                     f" ms float32")
+        else:
+            # float32 on the CUDA cores: 2*Dh multiply-adds for q.k and 2*Dh
+            # for p.v per kept pair, and one exponential.
+            bnd = bound_ms(moved, [(pairs * (4 * Dh + 1), PEAK_FP32_FLOPS)])
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=1.0))
+        kernel, library = (
+            lambda: op(*call),
+            lambda: sdpa(qt, kt, vt, is_causal=causal, scale=1.0))
+        t_k, lib = time_ms(kernel), time_ms(library)
+        first = FIRST_VERSION_MS.get(
+            f"flash {'packed ' if packed else ''}B={B} S={S}"
+            f"{' causal' if causal else ''}") if dtype != torch.float32 \
+            else None
         say(f"{name}: max|err| {err:.3e} ({excess:.3e} beyond one ulp), "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {bnd[0]:.4f} ms "
-            f"({bnd[1]}; bf16 tensor cores {tc_ms:.4f} ms), yardstick "
-            f"scaled_dot_product_attention {lib:.4f} ms")
+            f"kernel {t_k:.4f} ms ({replay_ms(kernel):.4f} ms replayed"
+            f"{f'; first version {first} ms' if first else ''}), plain "
+            f"{t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}{extra}), "
+            f"yardstick scaled_dot_product_attention {lib:.4f} ms "
+            f"({replay_ms(library):.4f} ms replayed)")
         if record is None:
             record = dict(source="smd_tpu_torch/csrc/flash_attention.cu",
                           replaces="smd_tpu/ops/flash_attention.py:159",

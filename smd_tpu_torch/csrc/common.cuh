@@ -69,6 +69,21 @@ __device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
   unpack(r, v);
 }
 
+// Eight float32 values stored as T at p, 16-byte aligned (bf16 rounds to
+// nearest even).
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 r;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = r;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

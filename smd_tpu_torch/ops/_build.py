@@ -41,7 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (number of pointer arguments, number of int arguments); every
 # launcher then takes the stream.
 _LAUNCHERS = {
-    "smd_fused_ln_film_swish_dense": (8, 7),
+    "smd_fused_ln_film_swish_dense": (9, 7),
     "smd_fused_ln_attention": (8, 7),
     "smd_w8a8_dense": (8, 7),
     "smd_flash_attention": (4, 16),

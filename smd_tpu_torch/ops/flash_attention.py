@@ -63,17 +63,23 @@ def _reference_attention(q, k, v, causal: bool, block_diag: int = 0):
 
 
 def _launch(q, k, v, causal: bool, block_diag: int):
-    """Check what the CUDA kernel takes, launch it and count the launch."""
+    """Check what the CUDA kernel takes, launch it and count the launch.
+
+    The checks read each tensor's shape and strides once: a served step
+    makes this call once a layer, and its host time adds to the step's."""
     if q.device.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, got {q.device}")
-    B, S, H, Dh = q.shape
+    shape = q.shape
+    B, S, H, Dh = shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head widths {HEAD_DIMS}, "
                          f"got Dh={Dh}")
+    size = q.element_size()
+    strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
-        if tuple(t.shape) != (B, S, H, Dh):
+        if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(B, S, H, Dh)}")
         if t.dtype != q.dtype or t.dtype not in _build.FLOATS:
@@ -81,17 +87,18 @@ def _launch(q, k, v, causal: bool, block_diag: int):
                              f"one of {_build.FLOATS}")
         # The kernel reads rows of Dh by 16-byte vectors, at any row, batch
         # and head stride that keeps them 16-byte aligned.
-        if t.stride(-1) != 1:
+        sb, ss, sh, sd = t.stride()
+        if sd != 1:
             raise ValueError(f"{name} must be contiguous along Dh")
-        if t.data_ptr() % 16 or any(
-                (s * t.element_size()) % 16 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or (sb * size) % 16 or (ss * size) % 16 or \
+                (sh * size) % 16:
             raise ValueError(f"{name}: rows must be 16-byte aligned")
-        if max(t.stride()[:3]) > _INT_MAX:
+        if max(sb, ss, sh) > _INT_MAX:
             raise ValueError(f"{name}: strides must fit in 32 bits")
+        strides += (sb, ss, sh)
     if block_diag < 0:
         raise ValueError(f"block_diag must be >= 0, got {block_diag}")
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         _build.launch("smd_flash_attention", q, k, v, out, B, S, H, Dh,
                       *strides, int(causal), int(block_diag),
@@ -125,9 +132,13 @@ def flash_attention(q, k, v, causal: bool = False, block_diag: int = 0):
     """Softmax attention over (B, S, H, Dh) tensors; q pre-scaled by caller.
 
     q, k and v may be strided views (the unbound qkv projection); the
-    output is a new contiguous (B, S, H, Dh) tensor in q's dtype.
+    output is a new contiguous (B, S, H, Dh) tensor in q's dtype. Where no
+    gradient is needed (serving), the call skips the autograd node.
     """
-    return _FlashAttention.apply(q, k, v, causal, block_diag)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, block_diag)
+    return _forward(q, k, v, causal, block_diag)
 
 
 flash_attention.launches = 0

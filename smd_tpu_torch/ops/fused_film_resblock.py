@@ -11,8 +11,10 @@ dtype before the product, which sums in float32; bias and residual are added
 in float32 and the result is stored in ``x.dtype``.
 
 On a CUDA tensor the wrapper launches the CUDA kernel of
-``csrc/fused_film_resblock.cu`` (a row-statistics pass, then the fused
-product) or raises; on a CPU tensor it takes
+``csrc/fused_film_resblock.cu`` (a pass that takes the row statistics and,
+for a bf16 W, writes the prologue's bf16 h once; then the product on the
+tensor cores with the bias and residual epilogue) or raises; on a CPU
+tensor it takes
 ``_reference``, the plain PyTorch version. Serving only: no backward yet.
 """
 from __future__ import annotations
@@ -63,12 +65,15 @@ def fused_ln_film_swish_dense(x, scale, shift, w, b, residual=None):
         raise ValueError(f"fused_ln_film_swish_dense needs K and N to be "
                          f"multiples of 8, got K={K}, N={N}")
     out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
-    # Each row's LN (mean, 1/std), computed once per call by the kernel.
+    # Each row's LN (mean, 1/std), computed once per call by the kernel,
+    # and for a bf16 W the prologue's output h in bf16, the product's A.
     stats = torch.empty((B * S, 2), dtype=torch.float32, device=x.device)
+    h = (torch.empty((B * S, K), dtype=torch.bfloat16, device=x.device)
+         if w.dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         _build.launch(
             "smd_fused_ln_film_swish_dense",
-            x, scale, shift, w, b, residual, out, stats,
+            x, scale, shift, w, b, residual, out, stats, h,
             B, S, K, N,
             _build.dtype_code(x), _build.dtype_code(w), _build.dtype_code(b))
     fused_ln_film_swish_dense.launches += 1

@@ -50,7 +50,14 @@ def _film(dev, B, S, K, N, x_dtype, w_dtype, b_dtype, residual, seed=0):
     (F32, F32, F32), (BF16, BF16, BF16), (BF16, BF16, F32), (F32, BF16, F32),
     (BF16, F32, BF16)])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("shape", [(4, 32, 256, 256), (3, 13, 72, 200)])
+@pytest.mark.parametrize("shape", [
+    (4, 32, 256, 256),
+    (3, 13, 72, 200),      # K and N multiples of no tile
+    (3, 100, 2048, 2048),  # 300 rows: a partial 128-row tile; S=100 rows
+                           # per item, so a tile spans several items' FiLM
+    (2, 40, 136, 2056),    # K=136: a ragged K step; N = 2048 + 8: one
+                           # column chunk past 8 tiles
+])
 def test_film_kernel_matches_plain(cuda, x_dtype, w_dtype, b_dtype, residual,
                                    shape):
     args = _film(cuda, *shape, x_dtype, w_dtype, b_dtype, residual)
@@ -305,6 +312,10 @@ def _assert_flash_close(out, ref):
     (3, 256, 4, 8, False, 32),      # many groups per q tile
     (1, 1024, 2, 64, False, 0),
     (4, 64, 2, 16, True, 0),        # one partial q tile
+    (2, 600, 2, 16, False, 0),      # ragged last q and k tiles
+    (3, 130, 2, 16, True, 0),       # ragged, causal: 2 keys in the last tile
+    (2, 130, 3, 8, False, 0),       # Dh=8: the depth padded to 16
+    (1, 600, 2, 64, True, 96),      # ragged, causal and groups at Dh=64
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, Dh, causal,
                                     block_diag):
@@ -320,9 +331,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, Dh, causal,
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_reads_strided_views(cuda, dtype, causal):
+@pytest.mark.parametrize("Dh", [16, 64])
+def test_flash_kernel_reads_strided_views(cuda, dtype, causal, Dh):
     from smd_tpu_torch.ops import flash_attention as fa
-    q, k, v = _qkv(cuda, 3, 512, 8, 16, dtype, strided=True)
+    q, k, v = _qkv(cuda, 3, 512, 8, Dh, dtype, strided=True)
     assert not q.is_contiguous()
     out = fa.flash_attention(q, k, v, causal)
     ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -380,3 +380,78 @@ def test_sample_signature_matches_jax():
         ("device", None, inspect.Parameter.KEYWORD_ONLY)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate.sample(None, None, None, (S, C), device="cpu")  # "ald"
+
+
+# -- the CUDA kernel's bf16 arithmetic, emulated ------------------------------
+
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16_trunc(x):
+    """x's top 16 bits: bf16 by truncation, as a float32 tensor."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _emulate_bf16_kernel(q, k, v, causal, block_diag):
+    """Plain-PyTorch emulation of ``csrc/flash_attention.cu``'s bf16 path.
+
+    bf16 q and k are widened to float32, so the scores are exact products
+    summed in float32 (in the CPU's order, not the tensor cores'). Over
+    tiles of 64 keys: the running max in base 2 with one rounding shared by
+    every p and alpha, p = exp2(fma(s, log2 e, -m2)), masked keys p = 0;
+    p is split into two bf16 parts, hi = p truncated to bf16 and lo =
+    bf16(p - hi), whose products with v are summed in float32; l sums the
+    float32 p.
+    """
+    B, S, H, D = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    rows = torch.arange(S)[:, None]
+    m2 = torch.full((B, H, S, 1), -np.inf)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    for t0 in range(0, S, 64):
+        keys = torch.arange(t0, min(t0 + 64, S))[None, :]
+        s = qf @ kf[:, :, t0:t0 + 64].transpose(-1, -2)
+        keep = torch.ones((S, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            keep &= keys <= rows
+        if block_diag:
+            keep &= keys // block_diag == rows // block_diag
+        s = s.masked_fill(~keep, -np.inf)
+        m2_new = torch.maximum(m2, s.amax(-1, keepdim=True) * _LOG2E)
+        mneg = torch.where(torch.isinf(m2_new), torch.zeros(()), -m2_new)
+        alpha = torch.exp2(m2 + mneg)
+        # fma: one rounding of the exact s * log2e + mneg.
+        p = torch.exp2((s.double() * float(_LOG2E) + mneg.double()).float())
+        hi = _bf16_trunc(p)
+        pv = sum(part @ vf[:, :, t0:t0 + 64]
+                 for part in (hi, (p - hi).bfloat16().float()))
+        acc = acc * alpha + pv
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m2 = m2_new
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _beyond_one_ulp(ours, ref):
+    """max(|ours - ref| - one bf16 ulp of |ref|): ``chip_smoke.check_flash``'s
+    measure, which it holds to 1e-5."""
+    ours, ref = _to_np(ours), _to_np(ref)
+    _, e = np.frexp(np.abs(ref))
+    return float((np.abs(ours - ref) - np.ldexp(np.ones_like(ref), e - 8))
+                 .max())
+
+
+@pytest.mark.parametrize("B,S,H,Dh,causal,block_diag", [
+    (2, 512, 8, 16, False, 0), (2, 512, 8, 16, True, 0),
+    (2, 512, 8, 16, False, 96), (2, 512, 8, 64, False, 0)])
+def test_split_p_arithmetic_within_one_bf16_ulp(B, S, H, Dh, causal,
+                                                block_diag):
+    """p split into two bf16 terms (relative error <= 2**-16) keeps the
+    kernel's output within chip_smoke's bound of the JAX reference:
+    one bf16 ulp of |ref| plus 1e-5, on unit-normal q, k, v."""
+    (q, k, v), (jq, jk, jv) = _cast(_qkv(B, S, H, Dh, seed=Dh + S),
+                                    "bfloat16")
+    ours = _emulate_bf16_kernel(q, k, v, causal, block_diag)
+    ref = jfa._reference_attention(jq, jk, jv, causal, block_diag)
+    assert _beyond_one_ulp(ours, ref) <= 1e-5
+
