@@ -17,28 +17,33 @@ Phases, one flushed line each with its seconds:
 1. device: needs ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit.
 2. build: builds (or finds) the CUDA kernels with nvcc; prints ptxas's
-   registers, shared memory and spills for the film and flash kernels, and
-   any spill or serialized wgmma in any kernel.
+   registers, shared memory and spills for the redesigned kernels (film,
+   flash, the tensor-core attention, the w8a8 product and its quantize
+   pass), and any spill or serialized wgmma in any kernel.
 3. kernels: each kernel at the sampler's shapes (B=1000, or for flash
    attention B=64 and B=16 at S=512, B=32 at S=1024, causal, and the packed
    B=1000 S=32 call) against its plain PyTorch version, plus small float32
    cases; times the kernel, the plain version and a one-call PyTorch
    yardstick per eager call between CUDA events (the records' times), and
    the kernel and the yardstick also as calls captured in a CUDA graph and
-   replayed (device time alone, no host launch); the film and flash
-   kernels beside their first versions' times.
+   replayed (device time alone, no host launch); every kernel beside its
+   first version's time; the bench-shape attention call must take the
+   tensor-core kernel.
 4. model: one fused flagship call on 64x32x42 through the kernels against
    the same call through the plain versions; the launch counts rise by 6
    and 4.
 5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests;
-   the counts rise by 6000 and 4000; a 20-step run through the kernels
-   matches one through the plain versions with the same generator.
+   the counts rise by 6000 and 4000, every attention launch on the
+   tensor-core kernel; a 20-step run through the kernels matches one
+   through the plain versions with the same generator.
 6. int8 model: the flagship's standard-layout weights from a seed,
    quantized with ``quantize_head_params`` and calibrated on the card with
    ``calibrate_head_act_scales``, float leaves cast to bf16; one call on
    64x32x42 through the w8a8 kernel against the plain version; the w8a8
    count rises by 4.
-7. int8 serve: as 5 with the int8 model; the w8a8 count rises by 4000.
+7. int8 serve: as 5 with the int8 model; the w8a8 count rises by 4000
+   and the weights are transposed no time (the model keeps their K-major
+   copies).
 8. standard model: the flagship's standard-layout weights from a seed,
    cast to bf16; one call on 16x512x42 through the flash kernel against the
    plain version, the flash count rising by 6; one call on 64x32x42, which
@@ -80,7 +85,8 @@ PEAK_SFU = 3.9e12
 FIRST_VERSION_MS = {"film": 2.643, "film+residual": 2.873,
                     "flash B=64 S=512": 0.320, "flash B=16 S=512": 0.090,
                     "flash B=32 S=1024": 0.649, "flash B=64 S=512 causal":
-                    0.209, "flash packed B=1000 S=32": 0.080}
+                    0.209, "flash packed B=1000 S=32": 0.080,
+                    "attention": 0.432, "w8a8": 0.537}
 
 SEQ_LEN, CHANNELS = 32, 42
 BENCH_BATCH = 1000          # bench.py's NUM_SAMPLES: the kernels' shapes
@@ -243,7 +249,10 @@ def phase_build():
             continue
         name = ln.split("'")[1]
         kernel = next((k for k in ("film_gemm_kernel", "row_stats_kernel",
-                                   "flash_bf16_kernel") if k in name), None)
+                                   "flash_bf16_kernel",
+                                   "ln_attention_tc_kernel",
+                                   "w8a8_gemm_kernel", "quantize_kernel")
+                       if k in name), None)
         if kernel is None:
             continue
         # The mangled template arguments, e.g. "ILi16EE" for Dh=16.
@@ -337,30 +346,54 @@ def phase_kernels():
     B, S, E, H = BENCH_BATCH, SEQ_LEN, 128, 8
     Dh = E // H
     x, ws = _attn_inputs(B, S, E, torch.bfloat16, gen)
+    tc = op.tc_launches
     out = op(x, *ws, H, False)
+    if op.tc_launches != tc + 1:
+        fail("the bench-shape attention call did not take the tensor-core "
+             "kernel")
     ref = fat._reference(x, *ws, H, False)
-    # float32 inside, bf16 out: one bf16 rounding of |y|.
+    # bf16 LN rows, q, k, v, p and o on the way (a CPU emulation of that
+    # arithmetic keeps within this rule), bf16 out.
     err = check_close("attention", out, ref, atol=2e-2, rtol=1e-2)
     t_p = time_ms(lambda: fat._reference(x, *ws, H, False), iters=10)
     R = B * S
-    ops = (2 * R * E * 3 * E + 2 * 2 * B * H * S * S * Dh +
-           2 * R * E * E + 5 * B * H * S * S + 8 * R * E)
     moved = 2 * (2 * R * E) + 2 * (3 * E * E + 3 * E + E * E + 3 * E)
-    bnd = bound_ms(moved, [(ops, PEAK_FP32_FLOPS)])
-    qkv = (torch.nn.functional.layer_norm(
-        x.float(), (E,), ws[4].float(), ws[5].float(), eps=1e-6)
-        @ ws[0].float() + ws[1].float()).to(x.dtype)
+    # What the function needs: the three products on the bf16 tensor cores,
+    # one exponential per score on the special-function units, and LN
+    # (~8 operations per element of x) and the softmax's other work (~4 per
+    # score) on the float32 CUDA cores.
+    scores = B * H * S * S
+    bnd = bound_ms(moved, [
+        (2 * R * E * 3 * E + 2 * 2 * scores * Dh + 2 * R * E * E,
+         PEAK_BF16_FLOPS),
+        (scores, PEAK_SFU),
+        (8 * R * E + 4 * scores, PEAK_FP32_FLOPS)])
+    F = torch.nn.functional
+    qkv = (F.layer_norm(x.float(), (E,), ws[4].float(), ws[5].float(),
+                        eps=1e-6) @ ws[0].float() + ws[1].float()).to(x.dtype)
     q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
                for t in qkv.split(E, dim=-1))
-    kernel, library = (
-        lambda: op(x, *ws, H, False),
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    kernel, library = (lambda: op(x, *ws, H, False),
+                       lambda: F.scaled_dot_product_attention(q, k, v))
+
+    def composite():
+        """The block from library calls in bf16; no single call computes
+        it, so it is printed, not recorded."""
+        h = F.linear(F.layer_norm(x, (E,), ws[4], ws[5], eps=1e-6),
+                     ws[0].t(), ws[1])
+        qc, kc, vc = (t.reshape(B, S, H, Dh).transpose(1, 2)
+                      for t in h.split(E, dim=-1))
+        o = F.scaled_dot_product_attention(qc, kc, vc)
+        return F.linear(o.transpose(1, 2).reshape(B, S, E), ws[2].t(), ws[3])
     t_k, lib = time_ms(kernel), time_ms(library)
-    say(f"attention B={B} S={S} E={E} H={H} bf16: max|err| {err:.3e}, "
-        f"kernel {t_k:.4f} ms ({replay_ms(kernel):.4f} ms replayed), plain "
-        f"{t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), yardstick "
+    say(f"attention B={B} S={S} E={E} H={H} bf16 (tensor-core kernel): "
+        f"max|err| {err:.3e}, kernel {t_k:.4f} ms ({replay_ms(kernel):.4f} "
+        f"ms replayed; first version {FIRST_VERSION_MS['attention']} ms), "
+        f"plain {t_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), yardstick "
         f"scaled_dot_product_attention bf16 {lib:.4f} ms "
-        f"({replay_ms(library):.4f} ms replayed)")
+        f"({replay_ms(library):.4f} ms replayed); library composite "
+        f"layer_norm, linear, SDPA, linear bf16 {time_ms(composite):.4f} ms "
+        f"({replay_ms(composite):.4f} ms replayed)")
     for (b_, s_, e_, h_, causal) in ((8, 32, 128, 8, True),
                                      (6, 20, 64, 2, False)):
         xs, wss = _attn_inputs(b_, s_, e_, torch.float32, gen)
@@ -375,7 +408,7 @@ def phase_kernels():
         replaces="smd_tpu/ops/fused_attention.py:135",
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd[0],
         bound_by=bnd[1], library_ms=lib)
-    del x, ws, qkv, q, k, v
+    del x, ws, qkv, q, k, v, out, ref
     records["w8a8_dense"] = _w8a8_kernel_checks(gen)
     records["flash_attention"] = _flash_kernel_checks(gen)
     torch.cuda.synchronize()
@@ -420,7 +453,9 @@ def _w8a8_kernel_checks(gen):
     # so the outputs agree to one bf16 rounding.
     M = BENCH_BATCH * SEQ_LEN
     x, w_q, w_s, b, a_s = _w8a8_inputs(M, K, N, torch.bfloat16, gen)
-    out = op(x, w_q, w_s, b, a_s)
+    # As served: the K-major copy made once beside the weight.
+    w_t = qmm.transpose_weight(w_q)
+    out = op(x, w_q, w_s, b, a_s, w_t=w_t)
     ref = qmm._reference(x, w_q, w_s, b, a_s)
     err = check_close("w8a8", out, ref, atol=1e-6, rtol=2 ** -7)
     t_p = time_ms(lambda: qmm._reference(x, w_q, w_s, b, a_s), iters=10)
@@ -431,23 +466,27 @@ def _w8a8_kernel_checks(gen):
     bnd = bound_ms(moved, [(2 * M * K * N, PEAK_INT8_OPS),
                            (4 * M * K + 3 * M * N, PEAK_FP32_FLOPS)])
     x_q = int8_codes(x.float(), a_s.float())
+
     def kernel():
-        return op(x, w_q, w_s, b, a_s)
+        return op(x, w_q, w_s, b, a_s, w_t=w_t)
     t_k, lib = time_ms(kernel), time_ms(lambda: torch._int_mm(x_q, w_q))
+    t_nt = time_ms(lambda: op(x, w_q, w_s, b, a_s))
     if not torch.equal(torch._int_mm(x_q, w_q).float(),
                        int8_matmul(x_q, w_q)):
         fail("torch._int_mm disagrees with the exact int32 sums")
     # cuBLAS takes another route for a column-major w_q, the layout the
-    # kernel transposes w_q into; shown beside the yardstick, not in it.
+    # kernel reads; shown beside the yardstick, not in it.
     w_cm = w_q.t().contiguous().t()
     lib_cm = time_ms(lambda: torch._int_mm(x_q, w_cm))
     say(f"w8a8 M={M} K={K} N={N} bf16: max|err| {err:.3e} (max|y| "
-        f"{float(ref.float().abs().max()):.3f}), kernel {t_k:.4f} ms "
-        f"({replay_ms(kernel):.4f} ms replayed), plain {t_p:.4f} ms, bound "
+        f"{float(ref.float().abs().max()):.3f}), kernel with the K-major "
+        f"copy {t_k:.4f} ms ({replay_ms(kernel):.4f} ms replayed; "
+        f"{t_nt:.4f} ms transposing w_q in the call; first version "
+        f"{FIRST_VERSION_MS['w8a8']} ms), plain {t_p:.4f} ms, bound "
         f"{bnd[0]:.4f} ms ({bnd[1]}), yardstick "
         f"torch._int_mm on the quantized operands {lib:.4f} ms "
         f"({lib_cm:.4f} ms with w_q column-major)")
-    del x, x_q, w_cm, out, ref
+    del x, x_q, w_cm, w_t, out, ref
 
     # A ragged row count with no bias, and float32 x with float32 leaves.
     for M, dtype, bias in ((1000, torch.bfloat16, False),
@@ -656,9 +695,20 @@ def _counts():
     return tuple(w.launches for w in _wrappers())
 
 
+def _side_counts():
+    """(tensor-core attention launches, w_q transposes)."""
+    from smd_tpu_torch.ops import fused_attention as fat
+    from smd_tpu_torch.ops import quant_matmul as qmm
+    return fat.fused_ln_attention.tc_launches, qmm.transpose_weight.launches
+
+
 def _reset_counts():
+    from smd_tpu_torch.ops import fused_attention as fat
+    from smd_tpu_torch.ops import quant_matmul as qmm
     for w in _wrappers():
         w.launches = 0
+    fat.fused_ln_attention.tc_launches = 0
+    qmm.transpose_weight.launches = 0
 
 
 def phase_model(model, model_fn, layout, batch=SERVE_BATCH,
@@ -719,7 +769,7 @@ def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
         state = serve(betas, 3)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = _counts()
+        counts, (tc, transposes) = _counts(), _side_counts()
         expected = tuple(SERVE_STEPS * n
                          for n in per_call_launches(layout, seq_len))
         if not torch.isfinite(state).all():
@@ -730,10 +780,14 @@ def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
             fail(f"the {SERVE_STEPS}-step {layout} sample launched "
                  f"(attention, film, w8a8, flash) {counts}, expected "
                  f"{expected}")
+        if tc != counts[0] or transposes:
+            fail(f"the {layout} sample made {tc} of {counts[0]} attention "
+                 f"launches on the tensor-core kernel and {transposes} "
+                 f"transposes of w_q, expected all and 0")
         say(f"served {layout}: {batch} requests of {seq_len}x{CHANNELS} x "
             f"{SERVE_STEPS} DDPM steps in {seconds:.3f} s = "
             f"{batch / seconds:.2f} seqs/s on {smi}; launches (attention, "
-            f"film, w8a8, flash) {counts}")
+            f"film, w8a8, flash) {counts}, w_q transposes {transposes}")
 
         betas20 = schedules.noise_schedule(1e-6, 0.01, 20, "linear")
         ours = serve(betas20, 4)

@@ -73,6 +73,12 @@ struct Strides {
   long long b, s, h;
 };
 
+using smd::cp_async16;
+using smd::ex2;
+using smd::ldmatrix_x2_trans;
+using smd::ldmatrix_x4;
+using smd::mma16816;
+using smd::pack_bf16;
 using smd::store8;
 
 // ---- float32: one thread per query row on the CUDA cores -------------------
@@ -225,56 +231,6 @@ template <int DH>
 constexpr int kMR = DH < 64 ? 2 : 1;
 template <int DH>
 constexpr int kRowsQ = 16 * kMR<DH> * kWarpsQ;  // query rows per block
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
-                                            bool trans) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(a));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, float32 sums.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// 2^x on the special-function unit (MUFU.EX2; 2^-inf = 0; results below
-// 2^-126 flush to 0, far below a p that moves a float32 sum).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DH>
 __global__ void __launch_bounds__(32 * kWarpsQ)

@@ -41,16 +41,25 @@
 // multicast of W across a cluster, and the prologue in place run by a
 // warpgroup of its own that holds no accumulators. A float32 W takes a plain
 // float32 path on the CUDA cores (used to check the kernel in float32).
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using smd::from_f32;
 using smd::load8;
+using smd::mbar_arrive;
+using smd::mbar_expect_tx;
+using smd::mbar_init;
+using smd::mbar_wait;
+using smd::smem_u32;
 using smd::store8;
+using smd::sw128_desc;
+using smd::tma_load;
+using smd::wgmma_commit;
+using smd::wgmma_fence;
+using smd::wgmma_wait;
 using smd::to_f32;
 using smd::warp_sum;
 
@@ -136,64 +145,6 @@ constexpr int kGemmSmem = kStages * kStageBytes + 1024;  // + 1024 alignment
 static_assert(kConsumers * 64 * kCLd * 4 <= kStages * kStageBytes,
               "the epilogue's staging fits in the ring");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// A 2-D box of the tensor map at (c0 inner, c1) into shared memory at dst,
-// completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // d[64x256] += A[64x16] (K-major) * B[16x256] (N-major), bf16 in, float32
 // accumulators in the m64nNk16 fragment layout.
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
@@ -386,37 +337,12 @@ film_gemm_kernel(const __grid_constant__ CUtensorMap tm_h,
   }
 }
 
-// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime so
-// that the library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A row-major bf16 (rows, cols) matrix read by boxes of box_rows x 64
 // columns under the 128-byte swizzle; out-of-bounds elements read as 0.
 bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
                  int box_rows) {
-  const auto fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBox, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return smd::encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                        cols, kBox, box_rows);
 }
 
 // ---- float32 W: plain float32 on the CUDA cores ---------------------------

@@ -184,6 +184,11 @@ class QuantDenseResBlock(nn.Module):
     ``a2_amax``; the largest seen since ``amax`` was last emptied), the
     counterpart of the JAX module's ``sow``. Requires input width ==
     output_size (the head case, no shortcut projection).
+
+    The kernel's product reads each weight K-major: ``kmajor_weight(i)``
+    keeps the (N, K) copy of ``w{i}_q``, made once and made again whenever
+    ``w{i}_q`` is loaded in place or replaced. It is neither a parameter
+    nor a buffer, so ``state_dict`` and ``load_flax_params`` do not see it.
     """
 
     def __init__(self, output_size: int, dtype: torch.dtype = torch.float32,
@@ -199,6 +204,8 @@ class QuantDenseResBlock(nn.Module):
         self.plain = False
         self.observe = False
         self.amax: dict = {}
+        # i -> (w{i}_q as last seen, its version counter, its (N, K) copy)
+        self._kmajor: dict = {}
         self.LayerNorm_0 = LayerNorm(n, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(n, dtype=dtype)
         for i in (1, 2):
@@ -207,6 +214,19 @@ class QuantDenseResBlock(nn.Module):
             setattr(self, f"w{i}_scale", nn.Parameter(torch.ones(n)))
             setattr(self, f"b{i}", nn.Parameter(torch.zeros(n)))
             setattr(self, f"a{i}_scale", nn.Parameter(torch.ones(())))
+
+    def kmajor_weight(self, i: int):
+        """``w{i}_q``'s K-major copy for the w8a8 kernel, made again if
+        ``w{i}_q`` changed since (a new tensor or an in-place write)."""
+        w_q = getattr(self, f"w{i}_q")
+        # An inference-mode tensor has no version counter (and takes no
+        # in-place write outside inference mode).
+        version = None if w_q.is_inference() else w_q._version
+        seen = self._kmajor.get(i)
+        if seen is None or seen[0] is not w_q or seen[1] != version:
+            seen = (w_q, version, qmm.transpose_weight(w_q))
+            self._kmajor[i] = seen
+        return seen[2]
 
     def _dense(self, x, i: int):
         w_q, w_s = getattr(self, f"w{i}_q"), getattr(self, f"w{i}_scale")
@@ -217,8 +237,10 @@ class QuantDenseResBlock(nn.Module):
             self.amax[key] = seen if key not in self.amax else \
                 torch.maximum(self.amax[key], seen)
         if self.use_kernel:
-            op = qmm._reference if self.plain else qmm.w8a8_dense
-            return op(x, w_q, w_s, b, a_s).to(self.dtype)
+            if self.plain:
+                return qmm._reference(x, w_q, w_s, b, a_s).to(self.dtype)
+            return qmm.w8a8_dense(x, w_q, w_s, b, a_s,
+                                  w_t=self.kmajor_weight(i)).to(self.dtype)
         return int8_dense(x, w_q, w_s, b,
                           a_s if self.static_act else None).to(self.dtype)
 

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("errors.cu", "fused_film_resblock.cu", "fused_attention.cu",
            "quant_matmul.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libsmd_tpu_torch_kernels.so"
@@ -42,8 +42,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher then takes the stream.
 _LAUNCHERS = {
     "smd_fused_ln_film_swish_dense": (9, 7),
-    "smd_fused_ln_attention": (8, 7),
-    "smd_w8a8_dense": (8, 7),
+    "smd_fused_ln_attention": (8, 8),
+    "smd_w8a8_dense": (7, 7),
+    "smd_int8_transpose": (2, 2),
     "smd_flash_attention": (4, 16),
 }
 

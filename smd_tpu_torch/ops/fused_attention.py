@@ -7,9 +7,18 @@ float32 with the weights cast up, stored in ``x.dtype``. The Pallas kernel's
 block-diagonal packing of NB items into one tile is a TPU tiling device and
 not part of the function.
 
-On a CUDA tensor the wrapper launches the CUDA kernel of
+On a CUDA tensor the wrapper launches one of the two CUDA kernels of
 ``csrc/fused_attention.cu`` or raises; on a CPU tensor it takes
 ``_reference``, the plain PyTorch version. Serving only: no backward yet.
+
+Routing between the two kernels (``tensor_core_route``): bf16 x with bf16
+weights, E a multiple of 16 up to 128 and S up to 64 (the sampler's
+shapes, B=1000, S=32, E=128, H=8) take ``ln_attention_tc_kernel``: several
+items a block on the bf16 tensor cores, LN rows, q, k, v, p and o rounded
+to bf16 on the way. Every other case (float32 x, float32 weights, E past
+128 or not a multiple of 16, S past 64) takes ``ln_attention_kernel``, the
+first version, all float32. ``fused_ln_attention.launches`` counts both;
+``fused_ln_attention.tc_launches`` the tensor-core kernel's alone.
 """
 from __future__ import annotations
 
@@ -19,14 +28,25 @@ from smd_tpu_torch.ops import _build
 
 __all__ = ["fused_ln_attention"]
 
-# Head widths the kernel is instantiated for (its per-thread registers).
+# Head widths the kernels are instantiated for (their per-thread registers).
 HEAD_DIMS = (8, 16, 32, 64)
 # Dynamic shared memory one block may use on Hopper.
 MAX_SHARED_BYTES = 232448
+# The tensor-core kernel: both weights in shared memory, an item's keys in
+# a warp's registers.
+TC_MAX_E, TC_MAX_S = 128, 64
+
+
+def tensor_core_route(x_dtype, w_dtype, S: int, E: int) -> bool:
+    """Whether a call takes the bf16 tensor-core kernel (else the float32
+    first version)."""
+    return (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
+            and E % 16 == 0 and E <= TC_MAX_E and S <= TC_MAX_S)
 
 
 def _shared_bytes(S: int, E: int) -> int:
-    """The kernel's shared memory: LN/attention rows and qkv rows, float32."""
+    """The first version's shared memory: LN/attention rows and qkv rows,
+    float32."""
     return 4 * S * ((E + 1) + (3 * E + 1))
 
 
@@ -77,8 +97,9 @@ def fused_ln_attention(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     if E % num_heads or E // num_heads not in HEAD_DIMS:
         raise ValueError(f"fused_ln_attention takes head widths {HEAD_DIMS}, "
                          f"got E={E}, num_heads={num_heads}")
+    tc = tensor_core_route(x.dtype, wqkv.dtype, S, E)
     smem = _shared_bytes(S, E)
-    if smem > MAX_SHARED_BYTES:
+    if not tc and smem > MAX_SHARED_BYTES:
         raise ValueError(f"fused_ln_attention: S={S}, E={E} needs {smem} "
                          f"bytes of shared memory, more than "
                          f"{MAX_SHARED_BYTES}")
@@ -88,9 +109,11 @@ def fused_ln_attention(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
             "smd_fused_ln_attention",
             x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, out,
             B, S, E, num_heads, int(causal),
-            _build.dtype_code(x), _build.dtype_code(wqkv))
+            _build.dtype_code(x), _build.dtype_code(wqkv), int(tc))
     fused_ln_attention.launches += 1
+    fused_ln_attention.tc_launches += int(tc)
     return out
 
 
 fused_ln_attention.launches = 0
+fused_ln_attention.tc_launches = 0

@@ -116,6 +116,55 @@ def test_attention_kernel_matches_plain(cuda, x_dtype, w_dtype, causal, B, S,
                                rtol=_tol(x_dtype))
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,S,E,H", [
+    (1000, 32, 128, 8),   # the bench shape: more tiles than the grid has SMs
+    (5, 32, 128, 8),      # NB=2 items a tile: B not a multiple of it
+    (7, 20, 64, 8),       # Dh=8, ragged S, NB=4
+    (3, 33, 64, 2),       # Dh=32, S past 32: 48 rows an item
+    (9, 16, 128, 2),      # Dh=64, NB=5
+    (4, 64, 128, 4),      # Dh=32, the longest S the kernel takes
+    (3, 64, 128, 8),      # Dh=16 at S=64: one 16-row query block at a time
+    (2, 50, 64, 8),       # Dh=8, ragged S rounded up to 64
+])
+def test_attention_tensor_core_kernel(cuda, causal, B, S, E, H):
+    """bf16 x and weights at S <= 64, E <= 128 take the tensor-core
+    kernel, several items a block."""
+    x, ws = _attn(cuda, B, S, E, BF16, BF16)
+    assert fat.tensor_core_route(x.dtype, ws[0].dtype, S, E)
+    before = (fat.fused_ln_attention.launches,
+              fat.fused_ln_attention.tc_launches)
+    out = fat.fused_ln_attention(x, *ws, H, causal)
+    ref = fat._reference(x, *ws, H, causal)
+    torch.cuda.synchronize()
+    assert (fat.fused_ln_attention.launches,
+            fat.fused_ln_attention.tc_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert out.dtype == BF16 and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(BF16),
+                               rtol=_tol(BF16))
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,S,E,H", [
+    (F32, F32, 32, 128, 8), (BF16, F32, 32, 128, 8), (F32, BF16, 32, 128, 8),
+    (BF16, BF16, 65, 64, 8),    # S past 64
+    (BF16, BF16, 32, 256, 4),   # E past 128
+])
+def test_attention_routes_the_rest_to_the_first_version(cuda, x_dtype,
+                                                        w_dtype, S, E, H):
+    x, ws = _attn(cuda, 3, S, E, x_dtype, w_dtype)
+    assert not fat.tensor_core_route(x.dtype, ws[0].dtype, S, E)
+    before = (fat.fused_ln_attention.launches,
+              fat.fused_ln_attention.tc_launches)
+    out = fat.fused_ln_attention(x, *ws, H)
+    ref = fat._reference(x, *ws, H)
+    torch.cuda.synchronize()
+    assert (fat.fused_ln_attention.launches,
+            fat.fused_ln_attention.tc_launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(x_dtype),
+                               rtol=_tol(x_dtype))
+
+
 def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, ws = _attn(cuda, 2, 8, 96, BF16, BF16)
     with pytest.raises(ValueError, match="head widths"):
@@ -233,6 +282,56 @@ def test_w8a8_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         qmm.w8a8_dense(x, w_q.cpu(), w_s, b, a_s)
 
 
+@pytest.mark.parametrize("M,K,N", [(1000, 2048, 2048), (300, 144, 264),
+                                   (37, 48, 72)])
+def test_w8a8_kernel_with_and_without_the_kmajor_copy(cuda, M, K, N):
+    """A caller's K-major copy spares the transpose launch; without it the
+    wrapper makes one; both give the same y."""
+    args = _w8a8(cuda, M, K, N, BF16, BF16)
+    w_t = qmm.transpose_weight(args[1])
+    assert torch.equal(w_t, args[1].t())
+    t0, l0 = qmm.transpose_weight.launches, qmm.w8a8_dense.launches
+    with_copy = qmm.w8a8_dense(*args, w_t=w_t)
+    torch.cuda.synchronize()
+    assert (qmm.transpose_weight.launches, qmm.w8a8_dense.launches) == \
+        (t0, l0 + 1)
+    without = qmm.w8a8_dense(*args)
+    torch.cuda.synchronize()
+    assert (qmm.transpose_weight.launches, qmm.w8a8_dense.launches) == \
+        (t0 + 1, l0 + 2)
+    assert torch.equal(with_copy, without)
+    atol, rtol = _w8a8_tol(BF16)
+    torch.testing.assert_close(with_copy.float(), qmm._reference(*args)
+                               .float(), atol=atol, rtol=rtol)
+    with pytest.raises(ValueError, match="w_t has shape"):
+        qmm.w8a8_dense(*args, w_t=w_t[:8])
+
+
+def test_quant_block_refreshes_its_kmajor_copy(cuda):
+    """The block's K-major copy follows w1_q through an in-place load and a
+    replacement, and is made once otherwise."""
+    from smd_tpu_torch.models.blocks import QuantDenseResBlock
+    block = QuantDenseResBlock(256, use_kernel=True).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+
+    def codes():
+        return torch.randint(-127, 128, (256, 256), generator=g, device=cuda,
+                             dtype=torch.int8)
+    with torch.no_grad():
+        block.w1_q.copy_(codes())
+    first = block.kmajor_weight(1)
+    assert torch.equal(first, block.w1_q.t())
+    t0 = qmm.transpose_weight.launches
+    assert block.kmajor_weight(1) is first
+    assert qmm.transpose_weight.launches == t0
+    with torch.no_grad():
+        block.w1_q.copy_(codes())          # as load_flax_params loads
+    assert torch.equal(block.kmajor_weight(1), block.w1_q.t())
+    block.w1_q = codes()                   # replaced
+    assert torch.equal(block.kmajor_weight(1), block.w1_q.t())
+    assert qmm.transpose_weight.launches == t0 + 2
+
+
 def test_int8_model_kernels_match_plain(cuda):
     """The quantized TransformerDDPM through the w8a8 kernel against the
     same model through its plain version: the same codes and sums, so the
@@ -261,6 +360,36 @@ def test_int8_model_kernels_match_plain(cuda):
         ref = model.use_plain_ops(True)(x, t)
     model.use_plain_ops(False)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_served_int8_model_makes_no_transpose_launch(cuda):
+    """After the first call has made each head weight's K-major copy, a
+    call of the quantized model launches w8a8 four times and no
+    transpose."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.fuse import quantize_head_params
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    kw = dict(data_channels=42, num_layers=1, num_heads=8, num_mlp_layers=2,
+              mlp_dims=256, embed_channels=128)
+    std = get_model("TransformerDDPM", device="cpu", **kw)
+    tree = quantize_head_params(random_flax_params(std, seed=0))
+    model = get_model("TransformerDDPM", device=cuda, quantized_head=True,
+                      quantized_head_kernel=True, **kw)
+    load_flax_params(model, tree)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(4, 32, 42, generator=g, device=cuda)
+    t = torch.rand(4, 1, 1, generator=g, device=cuda)
+    with torch.no_grad():
+        t0 = qmm.transpose_weight.launches
+        first = model(x, t)
+        assert qmm.transpose_weight.launches == t0 + 4
+        before = (qmm.transpose_weight.launches, qmm.w8a8_dense.launches)
+        again = model(x, t)
+        torch.cuda.synchronize()
+    assert (qmm.transpose_weight.launches, qmm.w8a8_dense.launches) == \
+        (before[0], before[1] + 4)
+    assert torch.equal(first, again)
 
 
 # -- flash_attention ----------------------------------------------------------

@@ -64,3 +64,94 @@ def test_cpu_wrapper_counts_no_launch():
     before = fat.fused_ln_attention.launches
     fat.fused_ln_attention(*map(torch.from_numpy, _inputs()), 4)
     assert fat.fused_ln_attention.launches == before
+
+
+# -- the CUDA kernel's bf16 arithmetic, emulated ------------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _emulate_bf16_kernel(x, wqkv, bqkv, wout, bout, lns, lnb, H, causal):
+    """Plain-PyTorch emulation of ``csrc/fused_attention.cu``'s bf16
+    tensor-core path (bf16 x and weights).
+
+    LN in float32, rounded to bf16; q, k, v = bf16(ln @ wqkv + bqkv) with
+    the products exact and the sums in float32 (in the CPU's order, not the
+    tensor cores'); scores q.k in float32; p = exp2(fma(s, c, -m2)) with
+    c = log2(e)/sqrt(Dh) and m2 = c * the row's max, one rounding; l sums
+    the float32 p; p rounded once to bf16 for p.v; o = bf16(p.v / l);
+    y = o @ wout + bout in float32, stored in x's type.
+    """
+    B, S, E = x.shape
+    Dh = E // H
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    ln = ((xf - mean) * torch.rsqrt(var + 1e-6) * lns.float() +
+          lnb.float()).bfloat16().float()
+    qkv = (ln @ wqkv.float() + bqkv.float()).bfloat16().float()
+    q, k, v = (t.reshape(B, S, H, Dh).permute(0, 2, 1, 3)
+               for t in qkv.split(E, dim=-1))
+    s = q @ k.transpose(-1, -2)
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, -np.inf)
+    c = np.float32(_LOG2E / np.sqrt(Dh))
+    m2 = s.amax(-1, keepdim=True) * c
+    p = torch.exp2((s.double() * float(c) - m2.double()).float())
+    l = p.sum(-1, keepdim=True)
+    o = ((p.bfloat16().float() @ v) / l).bfloat16().float()
+    o = o.permute(0, 2, 1, 3).reshape(B, S, E)
+    return (o @ wout.float() + bout.float()).to(x.dtype)
+
+
+def _bf16_inputs(B, S, E, seed):
+    """chip_smoke's attention inputs: x ~ N(0.2, 1), weights ~ N(0, 1/E),
+    small biases and LN affine, all bf16."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(B, S, E)) + 0.2,
+              rng.normal(size=(E, 3 * E)) / np.sqrt(E),
+              rng.normal(size=(3 * E,)) * 0.1,
+              rng.normal(size=(E, E)) / np.sqrt(E),
+              rng.normal(size=(E,)) * 0.1,
+              1 + 0.1 * rng.normal(size=(E,)),
+              0.1 * rng.normal(size=(E,))]
+    return [torch.from_numpy(a.astype(np.float32)).bfloat16() for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,E,H,causal", [
+    (8, 32, 128, 8, False),     # the bench shape (Dh=16), fewer items
+    (8, 32, 128, 8, True),
+    (4, 32, 64, 8, False),      # Dh=8
+    (4, 33, 64, 2, True),       # Dh=32, ragged S
+    (4, 16, 128, 2, False),     # Dh=64
+    (5, 20, 64, 8, True),       # Dh=8, ragged S
+])
+def test_bf16_kernel_arithmetic_within_tolerance(B, S, E, H, causal):
+    """bf16 LN rows, q, k, v, one bf16 rounding of p and of o keep the
+    kernel within chip_smoke's rule (|err| <= 2e-2 + 1e-2 |ref|) and the
+    card tests' (3e-2, 3e-2) of the JAX reference."""
+    args = _bf16_inputs(B, S, E, seed=S + E + H)
+    ours = _emulate_bf16_kernel(*args, H, causal).float().numpy()
+    ref = np.asarray(jfat._reference(
+        jnp.asarray(args[0].float().numpy(), jnp.bfloat16),
+        *(jnp.asarray(a.float().numpy()) for a in args[1:]),
+        num_heads=H, causal=causal), np.float32)
+    np.testing.assert_allclose(ours, ref, atol=2e-2, rtol=1e-2)
+    np.testing.assert_allclose(ours, ref, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,S,E,tc", [
+    (torch.bfloat16, torch.bfloat16, 32, 128, True),    # the bench shape
+    (torch.bfloat16, torch.bfloat16, 64, 64, True),
+    (torch.bfloat16, torch.bfloat16, 65, 128, False),   # S past 64
+    (torch.bfloat16, torch.bfloat16, 32, 256, False),   # E past 128
+    (torch.bfloat16, torch.bfloat16, 32, 40, False),    # E % 16
+    (torch.float32, torch.float32, 32, 128, False),
+    (torch.bfloat16, torch.float32, 32, 128, False),
+    (torch.float32, torch.bfloat16, 32, 128, False),
+])
+def test_tensor_core_route(x_dtype, w_dtype, S, E, tc):
+    """Which of the two CUDA kernels a call takes (decided before any
+    launch, so it is checked here)."""
+    assert fat.tensor_core_route(x_dtype, w_dtype, S, E) is tc

@@ -286,3 +286,32 @@ def test_quant_resblock_observe_records_amax():
 def test_kernel_block_requires_static_scales():
     with pytest.raises(ValueError, match="static"):
         blocks.QuantDenseResBlock(N, use_kernel=True, static_act=False)
+
+
+def test_quant_resblock_kmajor_copy_follows_reloads():
+    """The K-major copy the kernel reads is made once, made again when
+    load_flax_params reloads w1_q in place or w1_q is replaced, and stays
+    out of state_dict."""
+    _, _, _, tree = _block_case()
+    mod = load_flax_params(blocks.QuantDenseResBlock(N, use_kernel=True),
+                           tree)
+    first = mod.kmajor_weight(1)
+    assert torch.equal(first, mod.w1_q.t()) and first.is_contiguous()
+    assert mod.kmajor_weight(1) is first
+    _, _, _, other = _block_case(seed=3)
+    load_flax_params(mod, other)
+    assert torch.equal(mod.kmajor_weight(1),
+                       torch.from_numpy(other["params"]["w1_q"]).t())
+    mod.w2_q = torch.from_numpy(tree["params"]["w2_q"]).clone()
+    assert torch.equal(mod.kmajor_weight(2), mod.w2_q.t())
+    assert not any("kmajor" in k or k.endswith("_t")
+                   for k in mod.state_dict())
+
+
+def test_w8a8_cpu_wrapper_ignores_the_kmajor_copy():
+    x, w_q, w_s, b, a_s = (torch.as_tensor(a) for a in
+                           _dense_inputs(16, 64, 32))
+    w_t = quant_matmul.transpose_weight(w_q)
+    assert torch.equal(w_t, w_q.t())
+    out = quant_matmul.w8a8_dense(x, w_q, w_s, b, a_s, w_t=w_t)
+    assert torch.equal(out, quant_matmul.w8a8_dense(x, w_q, w_s, b, a_s))
