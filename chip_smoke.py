@@ -51,8 +51,28 @@ Phases, one flushed line each with its seconds:
 9. standard serve: as 5 on 16 requests of 512x42; the flash count rises by
    6000.
 
-Before each model call and each 1000-step serve every launch count is set
-to 0, and after it every count is read and checked.
+10. train: ``python -m smd_tpu_torch.train_ncsn``'s ``main`` with
+    ``configs/ddpm-mel-32seq-512.cfg`` (the flagship, batch 64, T=1000
+    linear betas, standard layout, float32) on seeded latents of 32x512
+    written as TFRecords (1,280 train, 128 eval examples) with the
+    flagship's 42-index slice: 200 steps with evaluations and checkpoints
+    at 100 and 200; every loss finite, the last 20 steps' mean below the
+    first step's; then resumed to 250, which must start at step 200.
+11. serve the checkpoint: ``restore_state_for_sampling`` and
+    ``serving_model_fn`` (bf16 on the card) on 64 requests of 32x42
+    through the 1000-step DDPM sampler; finite output.
+12. mixed precision: 40 steps with ``--mixed_precision`` (bf16 compute,
+    float32 params).
+13. fused training: the trained params in the fused layout at bf16, batch
+    64: one loss gradient through the kernels and one through the plain
+    versions, every parameter's gradient present, finite and within the
+    stated tolerance; then 25 optimizer steps through the kernels, whose
+    forward launches 6 attention and 4 film kernels a step.
+    Phases 10, 12 and 13 print wall ms/step next to the card's name and
+    power limit.
+
+Before each model call, each 1000-step serve and each training run every
+launch count is set to 0, and after it every count is read and checked.
 
 Any failed check exits non-zero. The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -60,11 +80,16 @@ CUDA device, or without the repository beside it, it fails and prints no
 result.
 """
 import json
+import logging
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 T_START = time.perf_counter()
@@ -97,6 +122,25 @@ FLAGSHIP = dict(num_layers=6, num_heads=8, num_mlp_layers=2, mlp_dims=2048,
                 embed_channels=128)
 SERVE_STEPS = 1000
 
+
+# Training (phases 10-13): the shipped flagfile, seeded latents.
+FLAGFILE = "configs/ddpm-mel-32seq-512.cfg"
+LATENT_SHAPE = (32, 512)
+TRAIN_EXAMPLES, EVAL_EXAMPLES = 1280, 128
+TRAIN_STEPS, RESUME_STEPS, MIXED_STEPS = 200, 250, 40
+FUSED_WARMUP, FUSED_STEPS = 5, 20
+# The flagship's slice, checkpoints/slice-mel-512.pkl (a copy for the card
+# leaves checkpoints/ out; tests/test_torch_cli.py holds the two equal).
+SLICE_MEL_512 = (12, 14, 24, 36, 41, 62, 73, 135, 154, 156, 167, 175, 177,
+                 182, 187, 199, 202, 211, 216, 226, 245, 248, 262, 266, 270,
+                 283, 294, 298, 345, 367, 370, 371, 377, 384, 387, 458, 471,
+                 473, 476, 480, 482, 483)
+# Fused-layout gradients through the kernels against the plain versions,
+# bf16 params and compute: |g_kernel - g_plain| <= GRAD_RTOL * |g_plain| per
+# parameter tensor (norms). The kernels round to bf16 where the plain
+# versions sum in float32; a flip of one bf16 ulp (2**-8) in an activation
+# carries through the later layers' backward.
+GRAD_RTOL = 5e-2
 
 KERNELS = ("fused_ln_attention", "fused_ln_film_swish_dense", "w8a8_dense",
            "flash_attention")
@@ -801,6 +845,269 @@ def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
     return counts
 
 
+def _write_latents(root):
+    """Seeded latents of 32x512 as TFRecords, through the port's writer: each
+    dimension a smooth AR(1) walk along the 32 steps with its own scale; and
+    the flagship's slice as a pickle."""
+    from smd_tpu_torch.data import records
+    rng = np.random.default_rng(0)
+    steps, dims = LATENT_SHAPE
+    scale = rng.uniform(0.2, 2.0, dims).astype(np.float32)
+    for split, n in (("train", TRAIN_EXAMPLES), ("eval", EVAL_EXAMPLES)):
+        z = np.empty((n, steps, dims), np.float32)
+        z[:, 0] = rng.normal(size=(n, dims))
+        for t in range(1, steps):
+            z[:, t] = 0.9 * z[:, t - 1] + 0.436 * rng.normal(size=(n, dims))
+        records.write_tfrecord(f"{root}/{split}-0.tfrecord", z * scale)
+    with open(f"{root}/slice.pkl", "wb") as f:
+        pickle.dump(np.asarray(SLICE_MEL_512, np.int64), f)
+
+
+class StepLog:
+    """A ``step_callback``: keeps each step's loss on the device, and reads
+    the clock after a synchronize at the two steps of ``window``."""
+
+    def __init__(self, window=None):
+        self.window = window
+        self.steps, self.losses, self.marks = [], [], {}
+
+    def __call__(self, step, metrics):
+        self.steps.append(step)
+        self.losses.append(metrics["loss"])
+        if self.window and step in self.window:
+            torch.cuda.synchronize()
+            self.marks[step] = time.perf_counter()
+
+    def ms_per_step(self):
+        a, b = self.window
+        return 1e3 * (self.marks[b] - self.marks[a]) / (b - a)
+
+
+def _train(argv, window=None):
+    """``train_ncsn.main`` on the flagfile plus ``argv``; fails unless every
+    loss is finite and no kernel launched (the standard layout at S=32
+    takes the einsum and the float head). Returns (state, log, losses)."""
+    from smd_tpu_torch import train_ncsn
+    steps = StepLog(window)
+    _reset_counts()
+    state = train_ncsn.main(["train_ncsn", f"--flagfile={FLAGFILE}", *argv],
+                            step_callback=steps)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != per_call_launches("standard"):
+        fail(f"training the standard layout launched (attention, film, "
+             f"w8a8, flash) {counts}, expected none")
+    losses = torch.stack(steps.losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        fail(f"non-finite training loss at steps "
+             f"{[s for s, l in zip(steps.steps, losses) if not l.isfinite()]}")
+    return state, steps, losses
+
+
+def phase_train(tmp, smi):
+    """The flagship trained from the flagfile, checkpointed and resumed."""
+    from smd_tpu_torch import cli
+    from smd_tpu_torch import train_ncsn  # noqa: F401  (defines the flags)
+    logging.basicConfig(stream=sys.stdout, level=logging.INFO,
+                        format="%(message)s")
+    cli.define_sampling_flags()   # --sampling_dtype for the serve phase
+    data = f"{tmp}/data"
+    t0 = time.perf_counter()
+    _write_latents(data)
+    size = sum(os.path.getsize(f"{data}/{f}") for f in os.listdir(data))
+    say(f"wrote {TRAIN_EXAMPLES} + {EVAL_EXAMPLES} latents of "
+        f"{LATENT_SHAPE[0]}x{LATENT_SHAPE[1]} ({size / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = [f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
+            f"--model_dir={tmp}/fp32", "--snapshot_freq=100",
+            "--logging_freq=10"]
+    state, steps, losses = _train(base + [f"--max_steps={TRAIN_STEPS}"],
+                                  window=(120, 180))
+    first, last = float(losses[0]), float(losses[-20:].mean())
+    ckpts = sorted(os.listdir(f"{tmp}/fp32/ckpt"))
+    if state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        fail(f"trained {len(losses)} steps to step {state.step}, expected "
+             f"{TRAIN_STEPS}")
+    if not last < first:
+        fail(f"the last 20 steps' mean loss {last:.4f} is not below the "
+             f"first step's {first:.4f}")
+    if f"{TRAIN_STEPS}.pt" not in ckpts:
+        fail(f"no checkpoint at step {TRAIN_STEPS}: {ckpts}")
+    say(f"trained float32 {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} "
+        f"layers, {cli.FLAGS.num_heads} heads, MLP {cli.FLAGS.mlp_dims}, "
+        f"batch {cli.FLAGS.batch_size}, T={cli.FLAGS.num_sigmas}): "
+        f"{TRAIN_STEPS} steps, loss first {first:.4f}, mean of the last 20 "
+        f"{last:.4f}, min {float(losses.min()):.4f}; checkpoints {ckpts}")
+    say(f"train float32: {steps.ms_per_step():.3f} ms/step (wall, steps "
+        f"120-180, data input included) on {smi}")
+
+    state, steps, losses = _train(base + [f"--max_steps={RESUME_STEPS}"])
+    if steps.steps[0] != TRAIN_STEPS + 1 or state.step != RESUME_STEPS:
+        fail(f"the resumed run took steps {steps.steps[0]}..{state.step}, "
+             f"expected {TRAIN_STEPS + 1}..{RESUME_STEPS}")
+    say(f"resumed from step {steps.steps[0] - 1} to {state.step}: loss mean "
+        f"{float(losses.mean()):.4f}; checkpoints "
+        f"{sorted(os.listdir(f'{tmp}/fp32/ckpt'))}")
+    return state
+
+
+def phase_train_serve(smi):
+    """The checkpoint restored and served as ``sample_ncsn`` would."""
+    from smd_tpu_torch import cli
+    from smd_tpu_torch.sampling import generate
+    model, state = cli.restore_state_for_sampling((SEQ_LEN, CHANNELS))
+    if state.step != RESUME_STEPS:
+        fail(f"restored step {state.step}, expected {RESUME_STEPS}")
+    model_fn = cli.serving_model_fn(state.sampling_params)
+    betas = cli.schedule_from_flags()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _reset_counts()
+    t0 = time.perf_counter()
+    samples, _, _ = generate.sample(model_fn, betas, gen, (SEQ_LEN, CHANNELS),
+                                    num_samples=SERVE_BATCH,
+                                    sampling=cli.FLAGS.sampling,
+                                    collect_steps=0, collect_metrics=False,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    if counts != per_call_launches("standard"):
+        fail(f"serving the checkpoint launched {counts}, expected none")
+    if samples.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
+            not torch.isfinite(samples).all():
+        fail(f"served samples {tuple(samples.shape)} are not finite or of "
+             f"the expected shape")
+    say(f"served the step-{state.step} checkpoint ({cli.FLAGS.sampling_dtype}"
+        f" serving, {cli.FLAGS.sampling} T={betas.shape[0]}): {SERVE_BATCH} "
+        f"requests of {SEQ_LEN}x{CHANNELS} in {seconds:.3f} s on {smi}; "
+        f"samples in [{float(samples.min()):.3f}, "
+        f"{float(samples.max()):.3f}], std {float(samples.std()):.3f}")
+
+
+def phase_mixed(tmp, smi):
+    data = f"{tmp}/data"
+    state, steps, losses = _train(
+        [f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
+         f"--model_dir={tmp}/bf16", "--mixed_precision",
+         f"--max_steps={MIXED_STEPS}", f"--snapshot_freq={MIXED_STEPS}",
+         "--logging_freq=10"], window=(10, 35))
+    dtypes = {p.dtype for p in state.model.parameters()}
+    if state.model.TransformerEncoder_0.dtype != torch.bfloat16 or \
+            dtypes != {torch.float32}:
+        fail(f"--mixed_precision built compute dtype "
+             f"{state.model.TransformerEncoder_0.dtype}, params {dtypes}")
+    say(f"train mixed precision (bf16 compute, float32 params): "
+        f"{steps.ms_per_step():.3f} ms/step (wall, steps 10-35, data input "
+        f"included), loss first {float(losses[0]):.4f}, last "
+        f"{float(losses[-1]):.4f}, on {smi}")
+
+
+def _fused_from(state):
+    """The trained standard-layout params in the fused layout at bf16."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.fuse import (fuse_attention_params,
+                                           fuse_head_params)
+    from smd_tpu_torch.utils.flax_params import load_flax_params
+    tree = {}
+    for name, p in state.params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach().float().cpu().numpy()
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, fused_attention=True,
+                      fused_head=True, dtype=torch.bfloat16, **FLAGSHIP)
+    load_flax_params(model, fuse_head_params(fuse_attention_params(
+        {"params": tree})))
+    return model.to(torch.bfloat16)
+
+
+def phase_fused_train(state, smi):
+    """Gradients and optimizer steps through the fused kernels."""
+    from smd_tpu_torch import cli
+    from smd_tpu_torch.diffusion import losses as losses_lib
+    from smd_tpu_torch.training import diffusion as trainer
+    model = _fused_from(state)
+    train_ds, _ = cli.dataset_from_flags()
+    batches = [torch.from_numpy(b).cuda() for b in train_ds]
+    betas = cli.schedule_from_flags()
+    T, batch = betas.shape[0], batches[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    draws = (torch.randint(1, T + 1, (batch.shape[0],), generator=gen,
+                           device="cuda"),
+             torch.rand(batch.shape[0], generator=gen, device="cuda"),
+             torch.randn(batch.shape, generator=gen, device="cuda"))
+    params = dict(model.named_parameters())
+
+    def grads(plain):
+        model.use_plain_ops(plain)
+        try:
+            loss = losses_lib.diffusion_loss(batch, model, betas, None, True,
+                                             draws=draws)
+            return loss, torch.autograd.grad(loss, list(params.values()),
+                                             allow_unused=True)
+        finally:
+            model.use_plain_ops(False)
+
+    _reset_counts()
+    loss_k, g_k = grads(False)
+    torch.cuda.synchronize()
+    counts, (tc, _) = _counts(), _side_counts()
+    if counts != per_call_launches("fused") or tc != counts[0]:
+        fail(f"a fused loss gradient launched (attention, film, w8a8, flash) "
+             f"{counts}, {tc} on the tensor-core kernel; expected "
+             f"{per_call_launches('fused')}, all")
+    loss_p, g_p = grads(True)
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(params, g_k, g_p):
+        if a is None or b is None:
+            fail(f"{name} has no gradient through the "
+                 f"{'kernels' if a is None else 'plain versions'}")
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"{name}: non-finite gradient")
+        rel = float((a.float() - b.float()).norm() /
+                    b.float().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > GRAD_RTOL:
+        fail(f"fused gradient of {worst_name} differs from the plain "
+             f"versions' by {worst:.3e} of its norm, more than {GRAD_RTOL}")
+    say(f"fused bf16 loss gradient, batch {batch.shape[0]}: loss "
+        f"{loss_k.item():.5f} through the kernels, {loss_p.item():.5f} "
+        f"through the plain versions; all {len(params)} parameters have a "
+        f"finite gradient; worst |g_kernel - g_plain| / |g_plain| "
+        f"{worst:.3e} ({worst_name}; tolerance {GRAD_RTOL})")
+
+    config = cli.train_config_from_flags()
+    tstate = trainer.create_train_state(model, config, seed=0, init=False)
+    train_step = trainer.make_train_step(losses_lib.diffusion_loss, betas,
+                                         config.continuous_noise)
+    for i in range(FUSED_WARMUP):
+        train_step(tstate, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [train_step(tstate, batches[i % len(batches)])[1]["loss"]
+              for i in range(FUSED_STEPS)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / FUSED_STEPS
+    counts, (tc, _) = _counts(), _side_counts()
+    expected = tuple(FUSED_STEPS * n for n in per_call_launches("fused"))
+    if counts != expected or tc != counts[0]:
+        fail(f"{FUSED_STEPS} fused train steps launched {counts} ({tc} on "
+             f"the tensor-core kernel), expected {expected}")
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        fail("non-finite loss in the fused train steps")
+    say(f"train fused layout (bf16 params and compute, the kernels forward, "
+        f"their plain versions' gradients backward): {ms:.3f} ms/step (wall, "
+        f"{FUSED_STEPS} steps after {FUSED_WARMUP}, batches on the card), "
+        f"losses {float(losses[0]):.4f} .. {float(losses[-1]):.4f}, "
+        f"launches (attention, film, w8a8, flash) {counts}, on {smi}")
+    return counts
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -828,7 +1135,18 @@ def main():
     with Phase("9 standard serve"):
         served.append(phase_serve(model, model_fn, smi, "standard",
                                   LONG_BATCH, LONG_SEQ_LEN))
-    # Each kernel's launches in the serves of the paths that run it.
+    del model, model_fn
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("10 train"):
+            state = phase_train(tmp, smi)
+        with Phase("11 serve the checkpoint"):
+            phase_train_serve(smi)
+        with Phase("12 mixed precision"):
+            phase_mixed(tmp, smi)
+        with Phase("13 fused training"):
+            served.append(phase_fused_train(state, smi))
+    # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)
     kernels = [dict(name=name, route="cuda", **records[name])

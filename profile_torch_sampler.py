@@ -12,9 +12,10 @@ standard einsum trunk and the w8a8 kernel, quantized and calibrated as
 there) and ``standard`` (the einsum trunk, or the flash-attention kernel at
 ``--seq_len`` >= 512, and the float head). It prints: wall seconds per step
 (host clock around a synchronised run), the device's busy time per step
-(union of the kernels' intervals in the trace) and its idle share, and the
-kernels by device time. The last line is one JSON object with those
-numbers. Needs a CUDA device.
+(union of the kernels' intervals in the trace) and its idle share, the
+device time by kind (the port's kernels, the library's matmuls, PyTorch's
+multi-tensor and other kernels) and the kernels by device time. The last
+line is one JSON object with those numbers. Needs a CUDA device.
 """
 import argparse
 import json
@@ -79,6 +80,35 @@ def main():
             _serve(model_fn, *run, 1)
             torch.cuda.synchronize()
 
+    report(prof, args.steps, wall, smi,
+           f"{args.layout}, batch {args.batch}, seq_len {args.seq_len}",
+           layout=args.layout, batch=args.batch, seq_len=args.seq_len)
+
+
+# The port's CUDA kernels (smd_tpu_torch/csrc/), by name.
+PORT_KERNELS = ("film_gemm_kernel", "film_f32_kernel", "row_stats_kernel",
+                "ln_attention_kernel", "ln_attention_tc_kernel",
+                "flash_bf16_kernel", "flash_kernel", "w8a8_gemm_kernel",
+                "quantize_kernel", "transpose_kernel")
+
+
+def kind(name):
+    """A device kernel's kind: the port's kernels, the library's matmuls,
+    PyTorch's multi-tensor (foreach) kernels, or other PyTorch kernels."""
+    if any(f"::{k}<" in name or f"::{k}(" in name for k in PORT_KERNELS):
+        return "port kernels"
+    if "multi_tensor_apply" in name:
+        return "multi-tensor kernels"
+    if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "library matmuls"
+    return "other kernels"
+
+
+def report(prof, steps, wall, smi, what, **meta):
+    """Print wall and device-busy ms per step, the idle share, the device
+    time by kind and the kernels by device time from a ``torch.profiler``
+    trace of ``steps`` steps; the last line one JSON object with them and
+    ``meta``."""
     per_kernel = defaultdict(lambda: [0, 0.0])
     intervals = []
     host = []
@@ -92,29 +122,37 @@ def main():
             host.append((evt.time_range.start, evt.time_range.end))
     if not intervals:
         raise SystemExit("the profiler recorded no device time")
-    busy = _busy_us(intervals) / 1e6 / args.steps
+    busy = _busy_us(intervals) / 1e6 / steps
     span = (max(e for _, e in intervals + host) -
-            min(s for s, _ in intervals + host)) / 1e6 / args.steps
-    print(f"{smi}; {args.layout}, batch {args.batch}, seq_len "
-          f"{args.seq_len}, {args.steps} steps", flush=True)
+            min(s for s, _ in intervals + host)) / 1e6 / steps
+    print(f"{smi}; {what}, {steps} steps", flush=True)
     print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
           f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
           f"idle share {1 - busy / span:.3f}")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    by_kind = defaultdict(lambda: [0.0, 0.0])
+    for name, (calls, us) in rows:
+        by_kind[kind(name)][0] += us / 1e3 / steps
+        by_kind[kind(name)][1] += calls / steps
+    print("by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms/step ({calls:.0f} calls)"
+        for k, (ms, calls) in sorted(by_kind.items(), key=lambda kv:
+                                      -kv[1][0])))
     print(f"{'device ms/step':>14} {'calls/step':>10}  kernel")
     for name, (calls, us) in rows[:25]:
-        print(f"{us / 1e3 / args.steps:14.4f} {calls / args.steps:10.1f}  "
+        print(f"{us / 1e3 / steps:14.4f} {calls / steps:10.1f}  "
               f"{name[:110]}")
     print(json.dumps({
-        "card": smi, "layout": args.layout, "batch": args.batch,
-        "seq_len": args.seq_len, "steps": args.steps,
+        "card": smi, **meta, "steps": steps,
         "wall_ms_per_step": wall * 1e3,
         "profiled_span_ms_per_step": span * 1e3,
         "device_busy_ms_per_step": busy * 1e3,
         "idle_share": 1 - busy / span,
-        "kernels": [{"name": n, "calls_per_step": c / args.steps,
-                     "device_ms_per_step": us / 1e3 / args.steps}
-                    for n, (c, us) in rows[:25]]}))
+        "by_kind": {k: {"device_ms_per_step": ms, "calls_per_step": c}
+                    for k, (ms, c) in by_kind.items()},
+        "kernels": [{"name": n, "calls_per_step": c / steps,
+                     "device_ms_per_step": us / 1e3 / steps}
+                    for n, (c, us) in rows[:25]]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -139,14 +139,20 @@ class FusedDenseResBlock(nn.Module):
         n = output_size
         self.dtype = dtype
         self.plain = False
-        self.w1 = nn.Parameter(lecun_normal_(torch.empty(n, n), n))
-        self.b1 = nn.Parameter(torch.zeros(n))
-        self.ln1_scale = nn.Parameter(torch.ones(n))
-        self.ln1_bias = nn.Parameter(torch.zeros(n))
-        self.w2 = nn.Parameter(lecun_normal_(torch.empty(n, n), n))
-        self.b2 = nn.Parameter(torch.zeros(n))
-        self.ln2_scale = nn.Parameter(torch.ones(n))
-        self.ln2_bias = nn.Parameter(torch.zeros(n))
+        for i in (1, 2):
+            setattr(self, f"w{i}", nn.Parameter(torch.empty(n, n)))
+            setattr(self, f"b{i}", nn.Parameter(torch.zeros(n)))
+            setattr(self, f"ln{i}_scale", nn.Parameter(torch.ones(n)))
+            setattr(self, f"ln{i}_bias", nn.Parameter(torch.zeros(n)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        for i in (1, 2):
+            lecun_normal_(getattr(self, f"w{i}"), self.w1.shape[0],
+                          generator)
+            nn.init.zeros_(getattr(self, f"b{i}"))
+            nn.init.ones_(getattr(self, f"ln{i}_scale"))
+            nn.init.zeros_(getattr(self, f"ln{i}_bias"))
 
     def forward(self, inputs, scale, shift):
         scale = torch.as_tensor(scale, dtype=torch.float32,

@@ -9,13 +9,16 @@ layer's LN + attention is one ``fused_ln_attention`` launch;
 launches), and with the int8 serving head (``quantized_head=True``: each
 head resblock is a ``QuantDenseResBlock``; with ``quantized_head_kernel``
 its two matmuls are two ``w8a8_dense`` launches). ``dtype`` is the compute
-dtype; parameters keep theirs, as in Flax. The models take ``(x, cond)``
-with ``cond`` the noise level in any of the shapes (B,), (B,1), (B,1,1).
+dtype; parameters keep theirs, as in Flax. ``remat=True`` recomputes each
+transformer layer in the backward pass instead of keeping its activations.
+The models take ``(x, cond)`` with ``cond`` the noise level in any of the
+shapes (B,), (B,1), (B,1,1).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from smd_tpu_torch.models.attention import MultiHeadSelfAttention
 from smd_tpu_torch.models.blocks import (DenseFiLM, DenseResBlock,
@@ -71,15 +74,25 @@ class FusedTransformerLayer(nn.Module):
         self.num_heads = num_heads
         self.causal = causal
         self.plain = False
-        self.wqkv = nn.Parameter(lecun_normal_(torch.empty(e, 3 * e), e))
+        self.wqkv = nn.Parameter(torch.empty(e, 3 * e))
         self.bqkv = nn.Parameter(torch.zeros(3 * e))
-        self.wout = nn.Parameter(lecun_normal_(torch.empty(e, e), e))
+        self.wout = nn.Parameter(torch.empty(e, e))
         self.bout = nn.Parameter(torch.zeros(e))
         self.ln_scale = nn.Parameter(torch.ones(e))
         self.ln_bias = nn.Parameter(torch.zeros(e))
+        self.reset_parameters()
         self.LayerNorm_0 = LayerNorm(e, dtype=dtype)
         self.Dense_0 = Dense(e, mlp_dims, dtype=dtype)
         self.Dense_1 = Dense(mlp_dims, e, dtype=dtype)
+
+    def reset_parameters(self, generator=None):
+        """The flat attention weights; the submodules draw their own."""
+        e = self.wqkv.shape[0]
+        lecun_normal_(self.wqkv, e, generator)
+        lecun_normal_(self.wout, e, generator)
+        for p in (self.bqkv, self.bout, self.ln_bias):
+            nn.init.zeros_(p)
+        nn.init.ones_(self.ln_scale)
 
     def forward(self, x):
         op = fat._reference if self.plain else fat.fused_ln_attention
@@ -99,10 +112,11 @@ class TransformerEncoder(nn.Module):
                  num_heads: int = 8, mlp_dims: int = 2048,
                  embed_channels: int = 128, causal: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, remat: bool = False):
         super().__init__()
         self.embed_channels = embed_channels
         self.dtype = dtype
+        self.remat = remat
         self.Dense_0 = Dense(in_channels, embed_channels, dtype=dtype)
         cls = FusedTransformerLayer if fused_attention else TransformerLayer
         self.layer_names = []
@@ -118,7 +132,13 @@ class TransformerEncoder(nn.Module):
                                    device=x.device).to(self.dtype)
         x = self.Dense_0(x) + temb[None]
         for name in self.layer_names:
-            x = getattr(self, name)(x)
+            layer = getattr(self, name)
+            if self.remat and torch.is_grad_enabled():
+                # The backward pass runs the layer again instead of keeping
+                # its activations, as nn.remat(block_cls) does.
+                x = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x)
         return x
 
 
@@ -140,14 +160,10 @@ class TransformerDDPM(nn.Module):
         if fused_head and quantized_head:
             raise ValueError("fused_head and quantized_head exclude each "
                              "other")
-        if remat:
-            raise NotImplementedError(
-                "remat is a training trade and training is not ported yet: "
-                "see ROADMAP.md, queue A")
         self.TransformerEncoder_0 = TransformerEncoder(
             data_channels, num_layers=num_layers, num_heads=num_heads,
             mlp_dims=mlp_dims, embed_channels=embed_channels, causal=False,
-            dtype=dtype, fused_attention=fused_attention)
+            dtype=dtype, fused_attention=fused_attention, remat=remat)
         self.LayerNorm_0 = LayerNorm(embed_channels, dtype=dtype)
         self.Dense_0 = Dense(embed_channels, mlp_dims, dtype=dtype)
         self.head_names = []

@@ -15,14 +15,40 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["Dense", "DenseGeneral", "LayerNorm", "lecun_normal_"]
+__all__ = ["Dense", "DenseGeneral", "LayerNorm", "lecun_normal_",
+           "init_parameters"]
 
 
-def lecun_normal_(param: torch.Tensor, fan_in: int) -> torch.Tensor:
-    """Flax's default kernel init: truncated normal, variance 1/fan_in."""
+def lecun_normal_(param: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Flax's default kernel init: truncated normal, variance 1/fan_in.
+
+    Drawn on the CPU from ``generator`` (a CPU generator, or the global one
+    when None) and copied in, so a seed gives the same weights on any
+    device.
+    """
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
-        return nn.init.trunc_normal_(param, std=std, a=-2 * std, b=2 * std)
+        value = nn.init.trunc_normal_(torch.empty(param.shape), std=std,
+                                      a=-2 * std, b=2 * std,
+                                      generator=generator)
+        return param.copy_(value)
+
+
+def init_parameters(module: nn.Module, seed: int) -> nn.Module:
+    """Draw every parameter of ``module`` anew with Flax's initializers
+    (kernels lecun-normal, biases 0, LayerNorm scales 1) from ``seed``.
+
+    Each submodule with a ``reset_parameters(generator)`` draws its own, in
+    module order; the counterpart of the JAX package's ``model.init(rng)``
+    (the values differ: the draws are torch's, not JAX's).
+    """
+    generator = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+    return module
 
 
 def _compute_dtype(dtype, *tensors) -> torch.dtype:
@@ -43,10 +69,14 @@ class DenseGeneral(nn.Module):
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
         self.dtype = dtype
-        fan_in = math.prod(self.in_shape)
-        self.kernel = nn.Parameter(lecun_normal_(
-            torch.empty(*self.in_shape, *self.out_shape), fan_in))
+        self.kernel = nn.Parameter(torch.empty(*self.in_shape,
+                                               *self.out_shape))
         self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.kernel, self.bias)
@@ -73,6 +103,10 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

@@ -9,7 +9,10 @@ not part of the function.
 
 On a CUDA tensor the wrapper launches one of the two CUDA kernels of
 ``csrc/fused_attention.cu`` or raises; on a CPU tensor it takes
-``_reference``, the plain PyTorch version. Serving only: no backward yet.
+``_reference``, the plain PyTorch version. Where a gradient is needed the
+call is a ``torch.autograd.Function`` whose backward differentiates
+``_reference`` at the saved inputs, as the JAX ``custom_vjp`` does; a call
+that needs none (serving) takes no autograd node.
 
 Routing between the two kernels (``tensor_core_route``): bf16 x with bf16
 weights, E a multiple of 16 up to 128 and S up to 64 (the sampler's
@@ -74,15 +77,9 @@ def _reference(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, num_heads,
     return (o @ wout.float() + bout.float()).to(x.dtype)
 
 
-def fused_ln_attention(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
-                       num_heads: int, causal: bool = False):
-    """LN + attention block for (B, S, E) with flat (E, 3E)/(E, E) weights.
-
-    The six weight tensors share one dtype (float32 or bfloat16).
-    """
-    if x.device.type == "cpu":
-        return _reference(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
-                          num_heads, causal)
+def _launch(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, num_heads,
+            causal):
+    """Check what the CUDA kernels take, launch one and count the launch."""
     B, S, E = x.shape
     wt = (wqkv.dtype,)
     _build.check_cuda_args(
@@ -113,6 +110,46 @@ def fused_ln_attention(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
     fused_ln_attention.launches += 1
     fused_ln_attention.tc_launches += int(tc)
     return out
+
+
+def _forward(*args):
+    if args[0].device.type == "cpu":
+        return _reference(*args)
+    return _launch(*args)
+
+
+class _FusedLnAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
+                num_heads, causal):
+        ctx.save_for_backward(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return _forward(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
+                        num_heads, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = _reference(*inputs, ctx.num_heads, ctx.causal)
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None, None)
+
+
+def fused_ln_attention(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias,
+                       num_heads: int, causal: bool = False):
+    """LN + attention block for (B, S, E) with flat (E, 3E)/(E, E) weights.
+
+    The six weight tensors share one dtype (float32 or bfloat16). Where no
+    gradient is needed (serving), the call skips the autograd node.
+    """
+    args = (x, wqkv, bqkv, wout, bout, ln_scale, ln_bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedLnAttention.apply(*args, num_heads, causal)
+    return _forward(*args, num_heads, causal)
 
 
 fused_ln_attention.launches = 0

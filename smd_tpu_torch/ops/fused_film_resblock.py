@@ -15,7 +15,10 @@ On a CUDA tensor the wrapper launches the CUDA kernel of
 for a bf16 W, writes the prologue's bf16 h once; then the product on the
 tensor cores with the bias and residual epilogue) or raises; on a CPU
 tensor it takes
-``_reference``, the plain PyTorch version. Serving only: no backward yet.
+``_reference``, the plain PyTorch version. Where a gradient is needed the
+call is a ``torch.autograd.Function`` whose backward differentiates
+``_reference`` at the saved inputs, as the JAX ``custom_vjp`` does; a call
+that needs none (serving) takes no autograd node.
 """
 from __future__ import annotations
 
@@ -43,14 +46,8 @@ def _reference(x, scale, shift, w, b, residual=None):
     return out.to(x.dtype)
 
 
-def fused_ln_film_swish_dense(x, scale, shift, w, b, residual=None):
-    """y = swish(LN(x) * scale + shift) @ w + b [+ residual].
-
-    Shapes: x (B, S, K); scale/shift (B, 1, K) float32; w (K, N); b (N,);
-    residual (B, S, N) in x.dtype, or None. Returns (B, S, N) in x.dtype.
-    """
-    if x.device.type == "cpu":
-        return _reference(x, scale, shift, w, b, residual)
+def _launch(x, scale, shift, w, b, residual):
+    """Check what the CUDA kernel takes, launch it and count the launch."""
     B, S, K = x.shape
     N = w.shape[1]
     _build.check_cuda_args(
@@ -78,6 +75,46 @@ def fused_ln_film_swish_dense(x, scale, shift, w, b, residual=None):
             _build.dtype_code(x), _build.dtype_code(w), _build.dtype_code(b))
     fused_ln_film_swish_dense.launches += 1
     return out
+
+
+def _forward(x, scale, shift, w, b, residual):
+    if x.device.type == "cpu":
+        return _reference(x, scale, shift, w, b, residual)
+    return _launch(x, scale, shift, w, b, residual)
+
+
+class _FusedLnFilmSwishDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, b, residual):
+        ctx.save_for_backward(x, scale, shift, w, b, residual)
+        return _forward(x, scale, shift, w, b, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = _reference(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in inputs)
+
+
+def fused_ln_film_swish_dense(x, scale, shift, w, b, residual=None):
+    """y = swish(LN(x) * scale + shift) @ w + b [+ residual].
+
+    Shapes: x (B, S, K); scale/shift (B, 1, K) float32; w (K, N); b (N,);
+    residual (B, S, N) in x.dtype, or None. Returns (B, S, N) in x.dtype.
+    Where no gradient is needed (serving), the call skips the autograd
+    node.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, scale, shift, w, b, residual)):
+        return _FusedLnFilmSwishDense.apply(x, scale, shift, w, b, residual)
+    return _forward(x, scale, shift, w, b, residual)
 
 
 fused_ln_film_swish_dense.launches = 0

@@ -1,0 +1,144 @@
+"""Optimizer and learning-rate schedule (port of
+``smd_tpu/training/optimizer.py``).
+
+Global-norm gradient clipping, then Adam, on a stepped exponential LR
+lr·γ^(step//interval) with optional linear warmup: the JAX package's
+``optax.chain(clip_by_global_norm, adam(schedule))``, written out over the
+parameter tensors with ``torch._foreach_*`` so that each step is optax's
+arithmetic:
+
+- clip: g is kept where ‖g‖ < max, else g / ‖g‖ · max;
+- Adam: m = (1-b1)·g + b1·m, v = (1-b2)·g² + b2·v, both unrounded in the
+  update; bias correction with count + 1; update m̂ / (sqrt(v̂) + eps), eps
+  = 1e-8 outside the root;
+- the LR at the count before the increment; with warmup the decay counts
+  from the end of warmup (``optax.join_schedules`` hands it ``step -
+  warmup``).
+
+The state is ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``,
+keyed by parameter name as optax's trees are keyed by path, so a JAX
+optimizer state carries over by name. ``adam_m_bf16`` stores the first
+moment in bfloat16 after the update has used it in float32, as optax's
+``mu_dtype`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["stepped_exponential_schedule", "Optimizer", "global_norm",
+           "make_optimizer"]
+
+
+def stepped_exponential_schedule(base_lr: float, interval: int, gamma: float,
+                                 warmup_steps: int = 0
+                                 ) -> Callable[[int], float]:
+    """count -> lr, float32 arithmetic as optax's: base_lr *
+    gamma^(count // interval), after ``warmup_steps`` of linear warmup from
+    0."""
+    f32 = np.float32
+
+    def decay(count):
+        if count <= 0:
+            return float(f32(base_lr))
+        p = np.floor(f32(count) / f32(interval))
+        return float(f32(base_lr) * np.power(f32(gamma), p, dtype=f32))
+
+    if warmup_steps <= 0:
+        return decay
+
+    def schedule(count):
+        if count >= warmup_steps:
+            return decay(count - warmup_steps)
+        frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(
+            warmup_steps)
+        return float((f32(0) - f32(base_lr)) * frac + f32(base_lr))
+
+    return schedule
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """clip_by_global_norm(grad_clip), then Adam on ``schedule``."""
+    schedule: Callable[[int], float]
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    mu_dtype: Optional[torch.dtype] = None
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                       for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def apply(self, params: Dict[str, torch.Tensor],
+              grads: Dict[str, torch.Tensor], state: dict,
+              grad_norm: Optional[torch.Tensor] = None) -> float:
+        """One step, in place on ``params`` and ``state``; returns the LR
+        it used. ``grad_norm`` is the grads' global norm when the caller
+        has it already."""
+        names = list(params)
+        p = [params[n] for n in names]
+        g = [grads[n] for n in names]
+        if grad_norm is None:
+            grad_norm = global_norm(g)
+        # select(norm < max, g, g / norm * max), on the device.
+        keep = grad_norm < self.grad_clip
+        one = torch.ones((), device=grad_norm.device)
+        g = torch._foreach_div(g, torch.where(keep, one, grad_norm))
+        torch._foreach_mul_(g, torch.where(keep, one, one * self.grad_clip))
+
+        mu_old = [state["mu"][n] for n in names]
+        nu = [state["nu"][n] for n in names]
+        # b1·m in m's dtype, b1 rounded to it (bf16 with adam_m_bf16: optax's
+        # weakly typed b1 takes the moment's type), then the sum in the
+        # gradients' dtype.
+        b1 = float(torch.tensor(self.b1, dtype=mu_old[0].dtype))
+        mu = torch._foreach_mul(g, 1 - self.b1)
+        torch._foreach_add_(mu, [m.to(x.dtype) for m, x in zip(
+            torch._foreach_mul(mu_old, b1), g)])
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - self.b2))
+        count = state["count"] + 1
+        f32 = np.float32
+        bc1 = float(f32(1) - np.power(f32(self.b1), f32(count), dtype=f32))
+        bc2 = float(f32(1) - np.power(f32(self.b2), f32(count), dtype=f32))
+        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(den, self.eps)
+        update = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        lr = self.schedule(state["count"])
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(p, update)
+        state["count"] = count
+        for n, m in zip(names, mu):
+            state["mu"][n] = m if self.mu_dtype is None else \
+                m.to(self.mu_dtype)
+        return lr
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(list(tensors), 2, dtype=torch.float32)))
+
+
+def make_optimizer(learning_rate: float = 1e-3,
+                   grad_clip: float = 1.0,
+                   lr_gamma: float = 0.98,
+                   lr_schedule_interval: int = 10000,
+                   warmup_steps: int = 0,
+                   adam_m_bf16: bool = False) -> Optimizer:
+    """``adam_m_bf16`` stores Adam's first moment in bfloat16; the EMA of
+    the train state stays float32 either way."""
+    schedule = stepped_exponential_schedule(learning_rate,
+                                            lr_schedule_interval, lr_gamma,
+                                            warmup_steps)
+    return Optimizer(schedule, grad_clip,
+                     mu_dtype=torch.bfloat16 if adam_m_bf16 else None)

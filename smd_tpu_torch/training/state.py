@@ -1,0 +1,121 @@
+"""Training state (port of ``smd_tpu/training/state.py``).
+
+``TrainState`` holds everything a step changes: the step count, the model
+(whose parameters are the params), the optimizer and its state, the float32
+EMA of the params, and the generator of the step's draws. The step changes
+it in place, the PyTorch idiom, where the JAX step returns a new pytree.
+``state_dict``/``load_state_dict`` carry all of it through a checkpoint, the
+generator's state included, so a resumed run draws what a straight run
+would have drawn. A checkpoint loaded on another kind of device (trained on
+the card, sampled on the CPU) keeps the new state's generator, whose state
+has another form there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from smd_tpu_torch.training.optimizer import Optimizer
+
+__all__ = ["TrainState", "EarlyStopping"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EarlyStopping:
+    """Early-stopping state (the JAX package's, rule for rule)."""
+    min_delta: float = 0.0
+    patience: int = 0
+    best_metric: float = float("inf")
+    patience_count: int = 0
+    should_stop: bool = False
+
+    def update(self, metric):
+        if math.isinf(self.best_metric) or \
+                self.best_metric - metric > self.min_delta:
+            return True, dataclasses.replace(self, best_metric=metric,
+                                             patience_count=0)
+        should_stop = self.patience_count >= self.patience or self.should_stop
+        return False, dataclasses.replace(
+            self, patience_count=self.patience_count + 1,
+            should_stop=should_stop)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model + optimizer state + EMA + generator, changed in place."""
+    model: nn.Module
+    tx: Optimizer
+    opt_state: dict
+    ema_params: Optional[Dict[str, torch.Tensor]]
+    generator: torch.Generator
+    step: int = 0
+    ema_mu: float = 0.999
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer, generator,
+               ema: bool = True, ema_mu: float = 0.999) -> "TrainState":
+        params = dict(model.named_parameters())
+        # The EMA starts as a copy of the params and stays float32.
+        ema_params = ({n: p.detach().float().clone()
+                       for n, p in params.items()} if ema else None)
+        return cls(model=model, tx=tx, opt_state=tx.init(params),
+                   ema_params=ema_params, generator=generator,
+                   ema_mu=ema_mu)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        grad_norm: Optional[torch.Tensor] = None) -> float:
+        """Clip, Adam and the EMA update; returns the LR of the step."""
+        params = self.params
+        lr = self.tx.apply(params, grads, self.opt_state, grad_norm)
+        if self.ema_params is not None:
+            mu = self.ema_mu
+            names = list(params)
+            ema = [self.ema_params[n] for n in names]
+            with torch.no_grad():
+                torch._foreach_mul_(ema, mu)
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [params[n].float() for n in names], 1 - mu))
+        self.step += 1
+        return lr
+
+    @property
+    def sampling_params(self) -> Dict[str, torch.Tensor]:
+        """EMA params when enabled, else the live params."""
+        if self.ema_params is not None:
+            return self.ema_params
+        return {n: p.detach() for n, p in self.params.items()}
+
+    def state_dict(self) -> dict:
+        return {"step": self.step,
+                "params": {n: p.detach() for n, p in self.params.items()},
+                "opt_state": self.opt_state,
+                "ema_params": self.ema_params,
+                "generator": self.generator.get_state(),
+                "generator_device": self.generator.device.type}
+
+    def load_state_dict(self, saved: dict) -> "TrainState":
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(saved["params"][n])
+        device = next(self.model.parameters()).device
+
+        def to_device(tree):
+            if isinstance(tree, dict):
+                return {k: to_device(v) for k, v in tree.items()}
+            return tree.to(device) if torch.is_tensor(tree) else tree
+
+        self.opt_state = to_device(saved["opt_state"])
+        if self.ema_params is not None:
+            self.ema_params = to_device(saved["ema_params"])
+        if saved["generator_device"] == self.generator.device.type:
+            self.generator.set_state(saved["generator"])
+        self.step = int(saved["step"])
+        return self

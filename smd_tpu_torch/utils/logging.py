@@ -1,0 +1,68 @@
+"""Metric logging: stdout and TensorBoard (port of
+``smd_tpu/utils/logging.py``).
+
+``SummaryWriter`` writes TensorBoard scalars through
+``torch.utils.tensorboard`` when it imports (it needs the ``tensorboard``
+package); without it the writer does nothing and the metrics go to the log
+alone, as the JAX package's does without TensorFlow. The per-noise-level
+sampling metrics (``log_sampling_metrics``) come with the few-step samplers
+(``ROADMAP.md`` queue A).
+"""
+from __future__ import annotations
+
+import logging
+
+__all__ = ["SummaryWriter", "log_metrics", "report_params"]
+
+log = logging.getLogger("smd_tpu_torch")
+
+
+class SummaryWriter:
+    """Scalar writer backed by ``torch.utils.tensorboard`` when available."""
+
+    def __init__(self, log_dir):
+        try:
+            from torch.utils.tensorboard import SummaryWriter as TBWriter
+        except ImportError:
+            self._writer = None
+        else:
+            self._writer = TBWriter(str(log_dir))
+
+    def scalar(self, tag, value, step):
+        if self._writer is not None:
+            self._writer.add_scalar(tag, float(value), int(step))
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
+
+
+def log_metrics(metrics, step, total_steps, epoch=None, summary_writer=None,
+                verbose=True):
+    metrics_str = ""
+    for metric, value in metrics.items():
+        if metric == "lr":
+            metrics_str += "{} {:5.4f} | ".format(metric, value)
+        else:
+            metrics_str += "{} {:5.2f} | ".format(metric, value)
+        if summary_writer is not None:
+            writer_step = step if epoch is None else total_steps * epoch + step
+            summary_writer.scalar(metric, value, writer_step)
+
+    epoch_str = "| epoch {:3d} ".format(epoch) if epoch is not None else ""
+    if verbose:
+        log.info("%s| %5d/%5d steps | %s", epoch_str, step, total_steps,
+                 metrics_str)
+
+
+def report_params(params):
+    """Log the parameter count and memory footprint of a {name: tensor}
+    dict (or a module's parameters)."""
+    if hasattr(params, "parameters"):
+        params = dict(params.named_parameters())
+    tensors = list(params.values())
+    n = sum(p.numel() for p in tensors)
+    footprint = sum(p.numel() * p.element_size() for p in tensors)
+    log.info("Number of trainable parameters: {:,}".format(n))
+    log.info("Memory footprint: %dMB", footprint / 2**20)
+    return n, footprint

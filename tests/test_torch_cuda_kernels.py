@@ -195,6 +195,107 @@ def test_fused_model_kernels_match_plain(cuda):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)  # float32
 
 
+def _grads_close(grads, ref_grads, dtype):
+    """Each gradient within a share of its plain counterpart's norm: the
+    backward differentiates the plain version at the same inputs, so the
+    two differ only through the loss's dependence on the forward output
+    (float32 sums in another order; bf16: one rounding of the output)."""
+    tol = 1e-4 if dtype == F32 else 2e-2
+    for a, b in zip(grads, ref_grads):
+        assert a is not None and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).norm() / b.float().norm()
+        assert err <= tol, f"relative gradient error {float(err):.3e}"
+
+
+def _half_square(out):
+    return 0.5 * out.float().square().sum()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("S", [32, 64])
+def test_film_gradients_through_the_kernel(cuda, dtype, residual, S):
+    """A loss through the kernel gives every input its gradient (the
+    backward differentiates the plain version), and the forward is one
+    launch."""
+    args = [None if a is None else a.requires_grad_()
+            for a in _film(cuda, 4, S, 256, 256, dtype, dtype, dtype,
+                           residual)]
+    leaves = [a for a in args if a is not None]
+    before = ffr.fused_ln_film_swish_dense.launches
+    out = ffr.fused_ln_film_swish_dense(*args)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(_half_square(out), leaves)
+    torch.cuda.synchronize()
+    assert ffr.fused_ln_film_swish_dense.launches == before + 1
+    ref = torch.autograd.grad(_half_square(ffr._reference(*args)), leaves)
+    _grads_close(grads, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [32, 64])
+def test_attention_gradients_through_the_kernel(cuda, dtype, causal, S):
+    x, ws = _attn(cuda, 6, S, 128, dtype, dtype)
+    leaves = [t.requires_grad_() for t in (x, *ws)]
+    before = (fat.fused_ln_attention.launches,
+              fat.fused_ln_attention.tc_launches)
+    out = fat.fused_ln_attention(*leaves, 8, causal)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(_half_square(out), leaves)
+    torch.cuda.synchronize()
+    # bf16 at S <= 64, E = 128 takes the tensor-core kernel.
+    assert (fat.fused_ln_attention.launches,
+            fat.fused_ln_attention.tc_launches) == (
+                before[0] + 1, before[1] + int(dtype == BF16))
+    ref = torch.autograd.grad(
+        _half_square(fat._reference(*leaves, 8, causal)), leaves)
+    _grads_close(grads, ref, dtype)
+
+
+def test_serving_call_takes_no_autograd_node(cuda):
+    """Without a gradient to record, the wrappers return a plain tensor, as
+    they did before the autograd nodes."""
+    x, ws = _attn(cuda, 2, 32, 128, BF16, BF16)
+    ws = [w.requires_grad_() for w in ws]
+    with torch.no_grad():
+        assert fat.fused_ln_attention(x, *ws, 8).grad_fn is None
+    args = _film(cuda, 2, 32, 256, 256, BF16, BF16, BF16, True)
+    assert ffr.fused_ln_film_swish_dense(*args).grad_fn is None
+
+
+def test_fused_model_gradients_through_the_kernels(cuda):
+    """Every parameter of the fused model gets a gradient through the
+    kernels, within the bf16 tolerance of the plain versions'."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device=cuda, data_channels=42,
+                      num_layers=2, num_heads=8, num_mlp_layers=2,
+                      mlp_dims=256, embed_channels=128, fused_attention=True,
+                      fused_head=True, dtype=BF16)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model = model.to(BF16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(8, 32, 42, generator=g, device=cuda)
+    t = torch.rand(8, 1, 1, generator=g, device=cuda)
+    params = list(model.parameters())
+    before = (fat.fused_ln_attention.launches,
+              ffr.fused_ln_film_swish_dense.launches)
+    grads = torch.autograd.grad(_half_square(model(x, t)), params)
+    assert (fat.fused_ln_attention.launches,
+            ffr.fused_ln_film_swish_dense.launches) == (before[0] + 2,
+                                                        before[1] + 4)
+    ref = torch.autograd.grad(
+        _half_square(model.use_plain_ops(True)(x, t)), params)
+    model.use_plain_ops(False)
+    # bf16 through 2 layers and the head: a looser share of the norm.
+    for a, b in zip(grads, ref):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).norm() <= 5e-2 * b.float().norm()
+
+
 def _w8a8(dev, M, K, N, x_dtype, leaf_dtype, bias=True, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     xf = torch.randn(M, K, generator=g, device=dev) * 0.8 + 0.3

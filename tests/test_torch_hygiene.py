@@ -22,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "absl",
 
 def _port_files():
     files = sorted((ROOT / "smd_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "profile_torch_sampler.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_torch_sampler.py",
+              ROOT / "profile_torch_train.py"]
     return files
 
 
