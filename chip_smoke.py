@@ -5,7 +5,8 @@
 
 The main paths are the flagship TransformerDDPM (6 layers, 8 heads, embed
 128, MLP 2048, two FiLM resblocks of width 2048) at bf16, served by the
-1000-step DDPM ancestral sampler, in three layouts: on sequences of 32x42
+1000-step DDPM ancestral sampler and by the few-step samplers, in three
+layouts: on sequences of 32x42
 latents (``bench.py``'s workload at a batch of 64 requests) the fused
 serving layout, and the standard einsum trunk with the int8 head
 (``quantized_head_kernel``, ``bench.py``'s ``BENCH_QUANT_KERNEL=1``); and on
@@ -71,6 +72,36 @@ Phases, one flushed line each with its seconds:
     Phases 10, 12 and 13 print wall ms/step next to the card's name and
     power limit.
 
+14. few-step serve: ``generate.sample`` through the fused flagship on 1000
+    requests of 32x42 (``bench.py``'s few-step rows, T=1000 linear betas):
+    DDIM-50, DPM++-8, distilled on ``distill_grid(betas, 2)`` and
+    consistency-1 on ``distill_grid(betas, 32)``, each timed; the counts
+    rise by 6 and 4 a model call, every attention launch on the
+    tensor-core kernel; each chain through the kernels against the same
+    chain through the plain versions, same generator, within CHAIN_RTOL of
+    its norm, and every model call of the plain chain through the kernels
+    on the same input within CALL_RTOL. Then ``generate.interpolate`` on a
+    20-step schedule (9 interpolants of 64 pairs).
+15. few-step int8 and flash: DDIM-50 through the int8 flagship (1000
+    requests; 200 w8a8 launches, no w_q transpose) and DPM++-8 through the
+    standard flagship at 16 x 512x42 (48 flash launches), each against its
+    plain chain.
+16. distillation: from phase 10's params in the fused layout at bf16,
+    ``progressive_distill`` 8 -> 4 -> 2 (20 steps a stage; the teacher
+    twice and the student once a step: 18 attention and 12 film launches)
+    and 20 ``consistency_distill`` steps (N=32; teacher twice, target,
+    student: 24 and 16 a step); every logged loss finite; the 2-step and
+    1-step students' samples finite; the distillation loss's gradient
+    through the kernels against the plain versions at three draw seeds,
+    with and without the x0 clip, the worst and the median parameter
+    (DISTILL_GRAD_RTOL); then with a one-ulp fault planted in the film
+    kernel's output, which the median check must catch.
+17. the CLIs: ``train_ncsn --distill`` (progressive 8 -> 2, consistency,
+    ct) on phase 10's checkpoint and TFRecords, its bundles written; then
+    ``sample_ncsn`` with ddim-50, dpmpp-8 with ``--infill`` (the 8 edge
+    latents kept), distilled-2 and consistency-1, 64 requests each, each
+    ``ncsn/generated.pkl`` finite and of the right shape.
+
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
 
@@ -79,6 +110,7 @@ JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the repository beside it, it fails and prints no
 result.
 """
+import contextlib
 import json
 import logging
 import os
@@ -1108,6 +1140,425 @@ def phase_fused_train(state, smi):
     return counts
 
 
+# Few-step generation and distillation (phases 14-17): bench.py's
+# few-step rows (bench.py:99-145) on its 1000 requests.
+FEWSTEP_BATCH = BENCH_BATCH
+FEWSTEP = (("ddim", dict(ddim_steps=50), 50),
+           ("dpmpp", dict(ddim_steps=8), 8),
+           ("distilled", dict(grid_steps=2), 2),
+           ("consistency", dict(ddim_steps=1, grid_steps=32), 1))
+# A few-step chain is checked twice against the plain versions, in norm.
+# Each model call of the plain chain also runs through the kernels on the
+# same input: |out_kernel - out_plain| <= CALL_RTOL * |out_plain| for every
+# call (0.98% at most on the card, every call of the four fused chains).
+# The whole chain through the kernels against the plain chain, same
+# generator: |chain_kernel - chain_plain| <= CHAIN_RTOL * |chain_plain|.
+# These samplers take x0 = (x - sigma·eps)/alpha at noise levels where
+# 1/alpha reaches 12 (T=1000's noisiest), so the bf16 rounding of the
+# model's output, which phase 5's DDPM chain contracts, moves single
+# elements by up to ~0.5 in one call: the chain reads 2.4-4.8% clean, and a
+# planted fault of one bf16 ulp in every film output only 6.25% (DDIM-50),
+# so CHAIN_RTOL catches gross faults only; the per-call check is the tight
+# one. Readings: study_torch_tolerances.py.
+CALL_RTOL = 2e-2
+CHAIN_RTOL = 0.1
+DISTILL_STAGE_STEPS, CD_STEPS, DISTILL_LOG_EVERY = 20, 20, 5
+# The progressive-distillation loss's gradient through the kernels against
+# the plain versions (the teacher through each), for each draw seed, with
+# and without the x0 clip: (worst parameter, median parameter), each
+# |g_kernel - g_plain| / |g_plain| of one parameter tensor. The loss's
+# residual, the gap
+# between the teacher's two jumps and the student's one, is small at the
+# trained params, so the bf16 rounding of both sides is a larger share of
+# it than of phase 13's eps residual, most on the input projection,
+# downstream of every kernel; the clip adds jumps where an element of x0
+# sits at +-1 in one run only. Card readings over seeds 10-19, without the
+# clip: worst 5.8-7.2%, median 0.53-0.78%; with it 10.0-15.4%, 1.2-2.1%. A
+# bias of one bf16 ulp or of 1% planted in every film output moves the
+# median to 1.6-1.8% without the clip and 4.2-5.0% with it
+# (study_torch_tolerances.py), so the median limits sit between; phase 16
+# plants the one-ulp bias each run and fails if the check misses it.
+DISTILL_GRAD_SEEDS = (10, 11, 12)
+DISTILL_GRAD_RTOL = {False: (0.1, 1.2e-2), True: (0.2, 3e-2)}
+# Model calls a distillation step launches: progressive, the teacher twice
+# and the student; consistency distillation, the teacher twice, the target
+# and the student.
+CALLS_PER_STEP = {"progressive": 3, "consistency": 4}
+
+
+def _betas(steps=SERVE_STEPS):
+    from smd_tpu_torch.diffusion import schedules
+    return schedules.noise_schedule(1e-6, 0.01, steps, "linear")
+
+
+def _check_launches(what, counts, expected, check_tc=True):
+    tc, transposes = _side_counts()
+    if counts != expected:
+        fail(f"{what} launched (attention, film, w8a8, flash) {counts}, "
+             f"expected {expected}")
+    if (check_tc and tc != counts[0]) or transposes:
+        fail(f"{what} made {tc} of {counts[0]} attention launches on the "
+             f"tensor-core kernel and {transposes} transposes of w_q, "
+             "expected all and 0")
+
+
+def _fewstep(model, model_fn, smi, layout, sampling, kw, calls, batch,
+             seq_len):
+    """One few-step chain through ``generate.sample`` (timed, launches
+    counted), then the same chain from the same generator through the
+    plain versions; returns the launch counts."""
+    from smd_tpu_torch.sampling import generate
+    kw = _sample_kw(kw)
+
+    def run(fn, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out, _, _ = generate.sample(fn, _betas(), gen, (seq_len, CHANNELS),
+                                    num_samples=batch, sampling=sampling,
+                                    collect_steps=0, collect_metrics=False,
+                                    device="cuda", **kw)
+        return out
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        ours = run(model_fn, 7)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        _check_launches(f"the {sampling} sample ({layout})", counts,
+                        tuple(calls * n for n in per_call_launches(
+                            layout, seq_len)),
+                        check_tc=layout == "fused")
+        if ours.shape != (batch, seq_len, CHANNELS):
+            fail(f"{sampling} samples have shape {tuple(ours.shape)}")
+        call_rels = []
+
+        def plain_and_kernels(x, c):
+            plain = model_fn_plain(model, model_fn, x, c)
+            call_rels.append(float((model_fn(x, c) - plain).norm() /
+                                   plain.norm()))
+            return plain
+
+        ref = run(plain_and_kernels, 7)
+    if not torch.isfinite(ours).all():
+        fail(f"{sampling} {layout} chain: non-finite output")
+    call_rel = max(call_rels)
+    if call_rel > CALL_RTOL:
+        fail(f"a model call of the {sampling} {layout} chain through the "
+             f"kernels differs from the plain versions' by {call_rel:.3e} of "
+             f"its norm, more than {CALL_RTOL}")
+    rel = float((ours - ref).norm() / ref.norm())
+    if rel > CHAIN_RTOL:
+        fail(f"{sampling} {layout} chain differs from the plain versions' by "
+             f"{rel:.3e} of its norm, more than {CHAIN_RTOL}")
+    say(f"{sampling} {layout} ({calls} model calls): {batch} requests of "
+        f"{seq_len}x{CHANNELS} in {seconds:.3f} s = {batch / seconds:.1f} "
+        f"seqs/s on {smi}; launches (attention, film, w8a8, flash) "
+        f"{counts}; kernels vs plain, |err| / |plain|: worst model call "
+        f"{call_rel:.3e} (tolerance {CALL_RTOL}), chain from the same "
+        f"generator {rel:.3e} (tolerance {CHAIN_RTOL}), max|err| "
+        f"{float((ours - ref).abs().max()):.3e}")
+    return counts
+
+
+def phase_fewstep(smi):
+    """DDIM-50, DPM++-8, distilled-2 and consistency-1 through the fused
+    flagship; then ``generate.interpolate`` on a 20-step schedule."""
+    from smd_tpu_torch.sampling import generate
+    model, model_fn = _flagship()
+    counts = []
+    with torch.no_grad():   # warm-up: each sampler's host path once
+        for sampling, kw, _ in FEWSTEP:
+            _fewstep_warmup(model_fn, sampling, kw)
+    for sampling, kw, calls in FEWSTEP:
+        counts.append(_fewstep(model, model_fn, smi, "fused", sampling, kw,
+                               calls, FEWSTEP_BATCH, SEQ_LEN))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    real = torch.rand(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                      device="cuda") * 2 - 1
+    with torch.no_grad():
+        _reset_counts()
+        t0 = time.perf_counter()
+        out, _, _ = generate.interpolate(model_fn, _betas(20), gen,
+                                         real.cpu().numpy(), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts.append(_counts())
+    _check_launches("interpolate", counts[-1], tuple(
+        9 * 20 * n for n in per_call_launches("fused")))
+    if out.shape != (9, SERVE_BATCH, SEQ_LEN, CHANNELS) or \
+            not torch.isfinite(out).all():
+        fail(f"interpolants {tuple(out.shape)} are not finite or of the "
+             "expected shape")
+    say(f"interpolate fused: 9 interpolants x {SERVE_BATCH} pairs, 20 DDPM "
+        f"steps each, in {seconds:.3f} s on {smi}; launches {counts[-1]}")
+    return counts
+
+
+def _sample_kw(kw):
+    """A FEWSTEP entry's ``generate.sample`` keywords: ``grid_steps`` N
+    becomes ``distill_grid(betas, N)``."""
+    from smd_tpu_torch.training import distill
+    kw = dict(kw)
+    if "grid_steps" in kw:
+        kw["distill_grid"] = distill.distill_grid(_betas(),
+                                                  kw.pop("grid_steps"))
+    return kw
+
+
+def _fewstep_warmup(model_fn, sampling, kw):
+    from smd_tpu_torch.sampling import generate
+    kw = _sample_kw(kw)
+    kw["ddim_steps"] = min(kw.get("ddim_steps", 2), 2)
+    generate.sample(model_fn, _betas(), None, (SEQ_LEN, CHANNELS),
+                    num_samples=8, sampling=sampling, collect_steps=0,
+                    collect_metrics=False, device="cuda", **kw)
+
+
+def phase_fewstep_int8_flash(smi):
+    """DDIM-50 through the int8 flagship (1000 requests); DPM++-8 through
+    the standard flagship at S=512 (16 requests, the flash kernel)."""
+    model, model_fn = _int8_flagship()
+    with torch.no_grad():
+        model_fn(torch.zeros(8, SEQ_LEN, CHANNELS, device="cuda"),
+                 torch.full((8, 1, 1), 0.5, device="cuda"))
+    counts = [_fewstep(model, model_fn, smi, "int8", "ddim",
+                       dict(ddim_steps=50), 50, FEWSTEP_BATCH, SEQ_LEN)]
+    del model, model_fn
+    model, model_fn = _standard_flagship()
+    counts.append(_fewstep(model, model_fn, smi, "standard", "dpmpp",
+                           dict(ddim_steps=8), 8, LONG_BATCH, LONG_SEQ_LEN))
+    del model, model_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _endless(batches):
+    while True:
+        yield from batches
+
+
+def phase_distill(state, smi):
+    """Progressive distillation 8 -> 4 -> 2 and consistency distillation
+    through the fused kernels (bf16), from the trained params; their
+    students' samples; one distillation-loss gradient through the kernels
+    against the plain versions."""
+    from smd_tpu_torch import cli
+    from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.training import consistency, distill
+    model = _fused_from(state)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    train_ds, _ = cli.dataset_from_flags()
+    batches = [torch.from_numpy(b).cuda() for b in train_ds]
+    betas = _betas()
+    counts = []
+
+    def serve(stage_params, grid, sampling, steps):
+        student = distill.frozen_copy(model, stage_params).eval()
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        with torch.no_grad():
+            out, _, _ = generate.sample(
+                lambda x, c: student(x.to(torch.bfloat16),
+                                     c.to(torch.bfloat16)).float(),
+                betas, gen, (SEQ_LEN, CHANNELS), num_samples=SERVE_BATCH,
+                sampling=sampling, ddim_steps=steps, distill_grid=grid,
+                device="cuda")
+        if out.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
+                not torch.isfinite(out).all():
+            fail(f"the {sampling} student's samples are not finite")
+        return out
+
+    for name, run, steps in (
+            ("progressive", lambda log: distill.progressive_distill(
+                model, params, betas, _endless(batches), start_steps=8,
+                end_steps=2, steps_per_stage=DISTILL_STAGE_STEPS,
+                scan_chunk=DISTILL_LOG_EVERY, log_fn=log),
+             3 * DISTILL_STAGE_STEPS),
+            ("consistency", lambda log: consistency.consistency_distill(
+                model, params, betas, _endless(batches), num_segments=32,
+                steps=CD_STEPS, scan_chunk=DISTILL_LOG_EVERY, log_fn=log),
+             CD_STEPS)):
+        losses = []
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run(lambda n, step, loss: losses.append(loss))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        counts.append(_counts())
+        _check_launches(f"{steps} {name} distillation steps", counts[-1],
+                        tuple(steps * CALLS_PER_STEP[name] * n
+                              for n in per_call_launches("fused")))
+        if not np.isfinite(losses).all():
+            fail(f"non-finite {name} distillation loss: {losses}")
+        if name == "progressive":
+            if sorted(out) != [2, 4, 8]:
+                fail(f"progressive stages {sorted(out)}")
+            sample = serve(out[2]["params"], out[2]["grid"], "distilled", 2)
+        else:
+            sample = serve(out["params"], out["grid"], "consistency", 1)
+        say(f"{name} distillation, fused bf16, batch {batches[0].shape[0]}: "
+            f"{steps} steps at {ms:.3f} ms/step (wall, stages and copies "
+            f"included; batches on the card), losses logged every "
+            f"{DISTILL_LOG_EVERY} {[round(x, 4) for x in losses]}, "
+            f"launches {counts[-1]} on {smi}; its "
+            f"{'2-step' if name == 'progressive' else '1-step'} sample of "
+            f"{SERVE_BATCH} in [{float(sample.min()):.3f}, "
+            f"{float(sample.max()):.3f}]")
+
+    # The distillation gradient, kernels against the plain versions, for
+    # each draw seed, with and without the x0 clip; then the same check
+    # with a one-ulp fault planted in the film kernel, which must fail it.
+    grid, mids = distill.halve_grid(distill.distill_grid(betas, 16))
+    teacher = distill.frozen_copy(model, params)
+    batch = batches[0]
+    names = list(params)
+
+    def grads(plain, clip_x0, draws):
+        for m in (model, teacher):
+            m.use_plain_ops(plain)
+        try:
+            loss = distill.progressive_distillation_loss(
+                batch, model, teacher, grid, mids, clip_x0=clip_x0,
+                draws=draws)
+            return loss, torch.autograd.grad(loss, list(
+                model.parameters()))
+        finally:
+            for m in (model, teacher):
+                m.use_plain_ops(False)
+
+    def gap(seed, clip_x0, fault=contextlib.nullcontext()):
+        """(losses, per-parameter |g_k - g_p| / |g_p| sorted, with names)
+        at draw ``seed``."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        draws = (torch.randint(0, 8, (batch.shape[0],), generator=gen,
+                               device="cuda"),
+                 torch.randn(batch.shape, generator=gen, device="cuda"))
+        _reset_counts()
+        with fault:
+            loss_k, g_k = grads(False, clip_x0, draws)
+        torch.cuda.synchronize()
+        _check_launches("a progressive distillation gradient", _counts(),
+                        tuple(3 * n for n in per_call_launches("fused")))
+        loss_p, g_p = grads(True, clip_x0, draws)
+        rels = []
+        for name, a, b in zip(names, g_k, g_p):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                fail(f"{name}: non-finite distillation gradient")
+            rels.append((float((a.float() - b.float()).norm() /
+                               b.float().norm().clamp_min(1e-30)), name))
+        return (loss_k, loss_p), sorted(rels)
+
+    for clip_x0 in (False, True):
+        worst_rtol, median_rtol = DISTILL_GRAD_RTOL[clip_x0]
+        what = f"{'with' if clip_x0 else 'without'} the x0 clip"
+        for seed in DISTILL_GRAD_SEEDS:
+            (loss_k, loss_p), rels = gap(seed, clip_x0)
+            (worst, worst_name), median = rels[-1], rels[len(rels) // 2][0]
+            if worst > worst_rtol or median > median_rtol:
+                fail(f"distillation gradient ({what}, seed {seed}) differs "
+                     f"from the plain versions' by {worst:.3e} of "
+                     f"{worst_name}'s norm (tolerance {worst_rtol}), "
+                     f"{median:.3e} at the median parameter (tolerance "
+                     f"{median_rtol})")
+            say(f"progressive distillation loss gradient ({what}, seed "
+                f"{seed}), batch {batch.shape[0]}: loss {loss_k.item():.5f} "
+                f"through the kernels, {loss_p.item():.5f} plain; "
+                f"|g_kernel - g_plain| / |g_plain| worst parameter "
+                f"{worst:.3e} ({worst_name}; tolerance {worst_rtol}), "
+                f"median {median:.3e} (tolerance {median_rtol})")
+        _, rels = gap(DISTILL_GRAD_SEEDS[0], clip_x0, _film_one_ulp_up())
+        median = rels[len(rels) // 2][0]
+        if median <= median_rtol:
+            fail(f"a one-ulp fault planted in the film kernel moved the "
+                 f"distillation gradient ({what}) by {median:.3e} at the "
+                 f"median parameter, within the tolerance {median_rtol}: "
+                 "the check cannot see it")
+        say(f"planted fault, every film output one bf16 ulp up ({what}, "
+            f"seed {DISTILL_GRAD_SEEDS[0]}): median {median:.3e}, above the "
+            f"tolerance {median_rtol}, as it must be")
+    return counts
+
+
+@contextlib.contextmanager
+def _film_one_ulp_up():
+    """A planted fault: each film kernel launch returns its output moved one
+    bf16 ulp towards +inf."""
+    from smd_tpu_torch.ops import fused_film_resblock as ffr
+    launch = ffr._launch
+
+    def faulty(*args):
+        out = launch(*args)
+        return torch.nextafter(out, torch.full_like(out, float("inf")))
+
+    ffr._launch = faulty
+    try:
+        yield
+    finally:
+        ffr._launch = launch
+
+
+def phase_fewstep_clis(tmp, smi):
+    """``train_ncsn --distill`` in its three modes, then ``sample_ncsn`` on
+    the checkpoint and the bundles, on phase 10's run."""
+    from smd_tpu_torch import sample_ncsn, train_ncsn
+    data = f"{tmp}/data"
+    base = [f"--flagfile={FLAGFILE}", f"--dataset={data}",
+            f"--slice_ckpt={data}/slice.pkl", f"--model_dir={tmp}/fp32"]
+    for mode, extra, bundles in (
+            ("progressive", ["--distill_start_steps=8",
+                             "--distill_end_steps=2",
+                             f"--distill_stage_steps={DISTILL_STAGE_STEPS}"],
+             ("8.pkl", "4.pkl", "2.pkl")),
+            ("consistency", ["--distill_stage_steps=10"],
+             ("consistency.pkl",)),
+            ("ct", ["--distill_stage_steps=8"], ("consistency.pkl",))):
+        _reset_counts()
+        t0 = time.perf_counter()
+        train_ncsn.main(["train_ncsn", *base, "--distill",
+                         f"--distill_mode={mode}", *extra])
+        torch.cuda.synchronize()
+        missing = [b for b in bundles if not os.path.exists(
+            f"{tmp}/fp32/distilled/{b}")]
+        if missing:
+            fail(f"train_ncsn --distill_mode={mode} wrote no {missing}")
+        _check_launches(f"train_ncsn --distill_mode={mode}", _counts(),
+                        per_call_launches("standard"))
+        say(f"train_ncsn --distill --distill_mode={mode} {' '.join(extra)}: "
+            f"{time.perf_counter() - t0:.1f} s (data input included), "
+            f"bundles {list(bundles)} on {smi}")
+    samples = [f"--sampling_dir={tmp}/samples", "--sample_size=64"]
+    for extra in (["--sampling=ddim", "--ddim_steps=50"],
+                  ["--sampling=dpmpp", "--ddim_steps=8", "--infill"],
+                  ["--sampling=distilled", "--ddim_steps=2"],
+                  ["--sampling=consistency",
+                   "--consistency_sampling_steps=1"]):
+        path = f"{tmp}/samples/ncsn/generated.pkl"
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        gen, _ = sample_ncsn.main(["sample_ncsn", *base, *samples, *extra])
+        seconds = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            flushed = pickle.load(f)
+        if flushed.shape != (64, *LATENT_SHAPE) or \
+                not np.isfinite(flushed).all() or \
+                gen.shape != (64, SEQ_LEN, CHANNELS):
+            fail(f"sample_ncsn {extra}: generated {flushed.shape} "
+                 f"(flushed), {gen.shape}, or not finite")
+        if "--infill" in extra:
+            from smd_tpu_torch import cli
+            _, eval_ds = cli.dataset_from_flags(include_cardinality=False)
+            real = eval_ds.take_examples(64)
+            if not (np.array_equal(gen[:, :8], real[:, :8]) and
+                    np.array_equal(gen[:, -8:], real[:, -8:])):
+                fail("sample_ncsn --infill changed the 8 edge latents")
+        say(f"sample_ncsn {' '.join(extra)}: 64 requests in {seconds:.2f} s "
+            f"(flags, data and model load included) on {smi}; "
+            f"ncsn/generated.pkl {flushed.shape}, finite")
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -1146,6 +1597,14 @@ def main():
             phase_mixed(tmp, smi)
         with Phase("13 fused training"):
             served.append(phase_fused_train(state, smi))
+        with Phase("14 few-step serve"):
+            served.extend(phase_fewstep(smi))
+        with Phase("15 few-step int8 and flash"):
+            served.extend(phase_fewstep_int8_flash(smi))
+        with Phase("16 distillation"):
+            served.extend(phase_distill(state, smi))
+        with Phase("17 the CLIs"):
+            phase_fewstep_clis(tmp, smi)
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

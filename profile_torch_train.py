@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of a training step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_train.py [--mode fp32|mixed|fused] [--batch 64]
-                                   [--steps 20]
+    python3 profile_torch_train.py [--mode fp32|mixed|fused|distill]
+                                   [--batch 64] [--steps 20]
 
 Trains the flagship TransformerDDPM of ``chip_smoke.py`` (6 layers, 8
 heads, embed 128, MLP 2048, 2 FiLM resblocks) on 32x42 latents with
@@ -13,7 +13,11 @@ batches in [-1, 1] that lie on the card. The modes: ``fp32`` (the standard
 layout in float32), ``mixed`` (``--mixed_precision``: bf16 compute, float32
 params) and ``fused`` (the fused layout, params and compute bf16: the
 attention and film kernels forward, their plain versions' gradients
-backward). After 5 warm-up steps it times ``--steps`` steps (host clock
+backward), and ``distill`` (a progressive-distillation step of the fused
+layout at bf16, ``training.distill.make_distill_step`` on the 8-to-4 stage
+of an 8-step start: the teacher, a frozen copy, twice without a gradient,
+the student once with its gradient, clip and Adam). After 5 warm-up steps
+it times ``--steps`` steps (host clock
 around a synchronised run), then traces as many under ``torch.profiler``,
 and prints wall and device-busy ms per step, the idle share, the device
 time by kind and the kernels by device time (``profile_torch_sampler.
@@ -28,20 +32,21 @@ import torch
 import chip_smoke
 from profile_torch_sampler import report
 
-MODES = ("fp32", "mixed", "fused")
+MODES = ("fp32", "mixed", "fused", "distill")
 
 
 def _state(mode):
     from smd_tpu_torch.models import get_model
     from smd_tpu_torch.models.layers import init_parameters
     from smd_tpu_torch.training import diffusion as trainer
+    fused = mode in ("fused", "distill")
     model = get_model("TransformerDDPM", device="cuda",
                       data_channels=chip_smoke.CHANNELS,
                       dtype=torch.float32 if mode == "fp32" else
-                      torch.bfloat16, fused_attention=mode == "fused",
-                      fused_head=mode == "fused", **chip_smoke.FLAGSHIP)
+                      torch.bfloat16, fused_attention=fused,
+                      fused_head=fused, **chip_smoke.FLAGSHIP)
     init_parameters(model, 0)
-    if mode == "fused":
+    if fused:
         model = model.to(torch.bfloat16)
     config = trainer.TrainConfig(learning_rate=1e-3, ema=False)
     return trainer.create_train_state(model, config, init=False)
@@ -57,9 +62,14 @@ def main():
     from smd_tpu_torch.diffusion import losses, schedules
     from smd_tpu_torch.training import diffusion as trainer
     state = _state(args.mode)
-    step = trainer.make_train_step(
-        losses.diffusion_loss,
-        schedules.noise_schedule(1e-6, 0.01, 1000, "linear"), True)
+    betas = schedules.noise_schedule(1e-6, 0.01, 1000, "linear")
+    if args.mode == "distill":
+        from smd_tpu_torch.training import distill
+        grid, mids = distill.halve_grid(distill.distill_grid(betas, 16))
+        step = distill.make_distill_step(state.model, state.params, grid,
+                                         mids)
+    else:
+        step = trainer.make_train_step(losses.diffusion_loss, betas, True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     batches = [torch.rand(args.batch, chip_smoke.SEQ_LEN, chip_smoke.CHANNELS,
                           generator=gen, device="cuda") * 2 - 1

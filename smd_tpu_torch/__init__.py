@@ -7,7 +7,8 @@ Nothing here imports JAX or ``smd_tpu``: where the port needs a function of
 the JAX package, even a numpy-only one, it keeps its own copy.
 
 Entry points (``models.get_model``, ``sampling.generate.sample``,
-``python -m smd_tpu_torch.train_ncsn``) run on ``cuda`` unless the caller
+``python -m smd_tpu_torch.train_ncsn``, ``python -m
+smd_tpu_torch.sample_ncsn``) run on ``cuda`` unless the caller
 passes ``device="cpu"`` (``--device=cpu``); without a GPU and without that
 request they raise (``device.resolve_device``). Each Pallas kernel of
 the JAX package that this port has reached is a CUDA C++ kernel under
@@ -19,17 +20,20 @@ Subpackages
 -----------
 - ``smd_tpu_torch.data``: the TF-free TFRecord writer, reader and input
   pipeline, and numpy copies of the latent transforms.
-- ``smd_tpu_torch.diffusion``: noise schedules, the DDPM loss and sampler.
+- ``smd_tpu_torch.diffusion``: noise schedules, the DDPM loss, the DDPM,
+  DDIM, DPM-Solver++, distilled and consistency samplers.
 - ``smd_tpu_torch.models``: TransformerDDPM in the standard and fused layouts
   and with the int8 serving head.
 - ``smd_tpu_torch.ops``: kernel wrappers, their plain versions, the build.
-- ``smd_tpu_torch.sampling``: the generation entry point.
+- ``smd_tpu_torch.sampling``: the generation drivers (sampling, infilling,
+  interpolation).
 - ``smd_tpu_torch.training``: the optimizer, train state, train step and
-  loop.
+  loop; progressive and consistency distillation.
 - ``smd_tpu_torch.utils``: the Flax params tree -> module weight carrier,
   checkpoints, logging.
-- ``smd_tpu_torch.cli``, ``smd_tpu_torch.train_ncsn``: the flags (parsed
-  without absl) and the training entry point.
+- ``smd_tpu_torch.cli``, ``smd_tpu_torch.train_ncsn``,
+  ``smd_tpu_torch.sample_ncsn``: the flags (parsed without absl) and the
+  training (and distillation) and sampling entry points.
 """
 
 __version__ = "0.1.0"

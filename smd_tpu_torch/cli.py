@@ -9,7 +9,9 @@ The card has no ``absl``, so ``Flags`` parses them itself, as absl does:
 blank lines and lines starting with ``#`` or ``//`` skipped), later
 values over earlier ones, ``--name`` / ``--noname`` and ``--name=true``
 for booleans, comma lists, ``--name value``, and an error on an unknown
-flag. Unlike absl's, each parse starts from the defaults.
+flag. Unlike absl's, each parse starts from the defaults, and a group of
+flags defined again (``train_ncsn`` and ``sample_ncsn`` in one process)
+is kept as it is.
 """
 from __future__ import annotations
 
@@ -163,6 +165,8 @@ FLAGS = Flags()
 
 def define_common_flags():
     F = FLAGS
+    if "seed" in F:   # an entry point imported earlier defined them
+        return
     F.DEFINE_integer("seed", 0, "Random seed for network initialization.")
     # Training
     F.DEFINE_float("learning_rate", 3e-4, "Learning rate for optimizer.")
@@ -233,6 +237,8 @@ def define_common_flags():
 
 def define_diffusion_flags():
     F = FLAGS
+    if "loss" in F:
+        return
     F.DEFINE_enum("loss", "dsm", ["dsm", "ssm", "ddpm"], "Loss function.")
     F.DEFINE_boolean("continuous_noise", True,
                      "Continuous noise conditioning.")
@@ -255,8 +261,7 @@ def define_diffusion_flags():
                   ["ald", "cas", "ddpm", "ddim", "dpmpp", "distilled",
                    "consistency"],
                   "Sampling algorithm to use.")
-    # Distillation (training/distill.py, training/consistency.py in the JAX
-    # package; not ported yet)
+    # Distillation (training/distill.py, training/consistency.py)
     F.DEFINE_boolean("distill", False,
                      "Progressively distill the latest checkpoint for "
                      "few-step sampling instead of training.")
@@ -296,6 +301,8 @@ def define_diffusion_flags():
 
 def define_sampling_flags():
     F = FLAGS
+    if "sample_seed" in F:
+        return
     F.DEFINE_integer("sample_seed", 1,
                      "Random number generator seed for sampling.")
     F.DEFINE_enum("sampling_dtype", "bfloat16", ["float32", "bfloat16"],

@@ -15,6 +15,8 @@ __all__ = [
     "noise_schedule",
     "DDPMConstants",
     "ddpm_constants",
+    "linspace_f32",
+    "half_log_snr",
 ]
 
 
@@ -113,3 +115,35 @@ def ddpm_constants(betas) -> DDPMConstants:
     )
     return DDPMConstants(**{k: torch.from_numpy(
         np.ascontiguousarray(v, dtype=np.float32)) for k, v in fields.items()})
+
+
+def linspace_f32(start, stop, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)`` in float32, as XLA computes it.
+
+    JAX evaluates ``start*(1 - i/d) + stop*(i/d)`` (d = num - 1) and XLA
+    rewrites the divisions into products by r = float32(1/d), folds
+    ``stop*r`` into one constant and fuses the last product into the sum:
+    ``fma(i, stop*r, start*(1 - i*r))``, then appends ``stop``. numpy's and
+    torch's linspace round otherwise: ``jnp.linspace(0, 999, 31)[5]`` is
+    166.50002 here and 166.5 there, and the DDIM step rounds it to 167, not
+    166. The sum is taken in float64 and rounded once to float32, which is
+    the fused sum unless it lands exactly on a float32 midpoint.
+    """
+    f32 = np.float32
+    start, stop = f32(start), f32(stop)
+    if num <= 1:
+        return np.full((max(num, 0),), start, f32)
+    div = num - 1
+    r = f32(f32(1) / f32(div))
+    i = np.arange(div, dtype=f32)
+    head = start * (f32(1) - i * r)
+    out = head.astype(np.float64) + i.astype(np.float64) * np.float64(
+        f32(stop * r))
+    return np.concatenate([out.astype(f32), np.full((1,), stop, f32)])
+
+
+def half_log_snr(alphas_prod) -> np.ndarray:
+    """lambda = 0.5 * (log(abar) - log1p(-abar)) in float32, the JAX
+    package's arithmetic (float64 would pick other grid points)."""
+    ab = np.asarray(torch.as_tensor(alphas_prod, dtype=torch.float32).cpu())
+    return (np.float32(0.5) * (np.log(ab) - np.log1p(-ab))).astype(np.float32)

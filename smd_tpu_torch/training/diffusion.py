@@ -16,7 +16,7 @@ import torch
 from smd_tpu_torch.diffusion import losses as losses_lib
 from smd_tpu_torch.models.layers import init_parameters
 from smd_tpu_torch.training import loop as loop_lib
-from smd_tpu_torch.training.optimizer import global_norm, make_optimizer
+from smd_tpu_torch.training.optimizer import make_optimizer
 from smd_tpu_torch.training.state import TrainState
 from smd_tpu_torch.utils import logging as log_lib
 
@@ -99,16 +99,10 @@ def make_train_step(objective, betas, continuous_noise: bool):
     alphas_prod = losses_lib.padded_alphas_prod(betas)
 
     def train_step(state: TrainState, batch, draws=None):
-        model = state.model
-        params = state.params
-        loss = objective(batch, model, betas, state.generator,
+        loss = objective(batch, state.model, betas, state.generator,
                          continuous_noise, "mean", alphas_prod=alphas_prod,
                          draws=draws)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
-        grad_norm = global_norm(grads.values())
-        lr = state.apply_gradients(grads, grad_norm)
-        return state, {"loss": loss.detach(), "grad": grad_norm, "lr": lr}
+        return state, state.descend(loss)
 
     return train_step
 

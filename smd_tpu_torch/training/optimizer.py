@@ -2,7 +2,8 @@
 ``smd_tpu/training/optimizer.py``).
 
 Global-norm gradient clipping, then Adam, on a stepped exponential LR
-lr·γ^(step//interval) with optional linear warmup: the JAX package's
+lr·γ^(step//interval) with optional linear warmup (training) or optax's
+warmup-cosine decay (distillation): the JAX package's
 ``optax.chain(clip_by_global_norm, adam(schedule))``, written out over the
 parameter tensors with ``torch._foreach_*`` so that each step is optax's
 arithmetic:
@@ -29,8 +30,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["stepped_exponential_schedule", "Optimizer", "global_norm",
-           "make_optimizer"]
+__all__ = ["stepped_exponential_schedule", "warmup_cosine_decay_schedule",
+           "Optimizer", "global_norm", "make_optimizer"]
 
 
 def stepped_exponential_schedule(base_lr: float, interval: int, gamma: float,
@@ -56,6 +57,42 @@ def stepped_exponential_schedule(base_lr: float, interval: int, gamma: float,
         frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(
             warmup_steps)
         return float((f32(0) - f32(base_lr)) * frac + f32(base_lr))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
+                                 decay_steps: int) -> Callable[[int], float]:
+    """count -> lr, the schedule of every distillation driver of the JAX
+    package, optax's ``warmup_cosine_decay_schedule(0.0, peak_value,
+    warmup_steps, decay_steps, end_value=peak_value * 0.01)``, in its
+    float32 arithmetic: linear from 0 to ``peak_value`` over
+    ``warmup_steps``, then a cosine decay to a hundredth of it at
+    ``decay_steps`` (warmup included), constant after."""
+    f32 = np.float32
+    # optax's end_value / peak_value, which need not round to 0.01.
+    alpha = 0.0 if peak_value == 0.0 else peak_value * 0.01 / peak_value
+    cosine_steps = decay_steps - warmup_steps
+    if not cosine_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={cosine_steps}.")
+
+    def warmup(count):
+        if warmup_steps <= 0:
+            return f32(0)
+        frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(
+            warmup_steps)
+        return f32(-peak_value) * frac + f32(peak_value)
+
+    def cosine(count):
+        count = min(f32(count), f32(cosine_steps))
+        decay = f32(0.5) * (f32(1) + np.cos(
+            f32(np.pi) * count / f32(cosine_steps)))
+        return f32(peak_value) * (f32(1 - alpha) * decay + f32(alpha))
+
+    def schedule(count):
+        return float(warmup(count) if count < warmup_steps
+                     else cosine(count - warmup_steps))
 
     return schedule
 

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from smd_tpu_torch.training.optimizer import Optimizer
+from smd_tpu_torch.training.optimizer import Optimizer, global_norm
 
 __all__ = ["TrainState", "EarlyStopping"]
 
@@ -85,6 +85,17 @@ class TrainState:
                     [params[n].float() for n in names], 1 - mu))
         self.step += 1
         return lr
+
+    def descend(self, loss: torch.Tensor) -> dict:
+        """One step on ``loss``: its gradient with respect to every param,
+        their unclipped global norm, then ``apply_gradients``. Returns the
+        metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float)."""
+        params = self.params
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = dict(zip(params, grads))
+        grad_norm = global_norm(grads.values())
+        lr = self.apply_gradients(grads, grad_norm)
+        return {"loss": loss.detach(), "grad": grad_norm, "lr": lr}
 
     @property
     def sampling_params(self) -> Dict[str, torch.Tensor]:

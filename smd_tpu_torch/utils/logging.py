@@ -4,15 +4,14 @@
 ``SummaryWriter`` writes TensorBoard scalars through
 ``torch.utils.tensorboard`` when it imports (it needs the ``tensorboard``
 package); without it the writer does nothing and the metrics go to the log
-alone, as the JAX package's does without TensorFlow. The per-noise-level
-sampling metrics (``log_sampling_metrics``) come with the few-step samplers
-(``ROADMAP.md`` queue A).
+alone, as the JAX package's does without TensorFlow.
 """
 from __future__ import annotations
 
 import logging
 
-__all__ = ["SummaryWriter", "log_metrics", "report_params"]
+__all__ = ["SummaryWriter", "log_metrics", "log_sampling_metrics",
+           "report_params"]
 
 log = logging.getLogger("smd_tpu_torch")
 
@@ -53,6 +52,22 @@ def log_metrics(metrics, step, total_steps, epoch=None, summary_writer=None,
     if verbose:
         log.info("%s| %5d/%5d steps | %s", epoch_str, step, total_steps,
                  metrics_str)
+
+
+def log_sampling_metrics(ld_metrics, step, output_dir, verbose=False):
+    """Per-noise-level sampling statistics to their own TensorBoard dir:
+    slope, step, alpha and noise scalars of each level under
+    ``{output_dir}/sampling_epoch{step}``."""
+    from smd_tpu_torch.diffusion.samplers import collate_sampling_metrics
+    collated = collate_sampling_metrics(ld_metrics)
+    if not collated:
+        return
+    writer = SummaryWriter(f"{output_dir}/sampling_epoch{step}")
+    for i, sigma_metrics in enumerate(collated):
+        for j, metric in enumerate(sigma_metrics):
+            log_metrics(metric, j, len(sigma_metrics), epoch=i,
+                        summary_writer=writer, verbose=verbose)
+    writer.flush()
 
 
 def report_params(params):

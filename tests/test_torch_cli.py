@@ -151,11 +151,12 @@ def test_train_ncsn_needs_a_gpu_or_device_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["train_ncsn", "--flagfile=configs/ddpm-mel-32seq-512.cfg",
             f"--dataset={tmp_path}", f"--model_dir={tmp_path}/m"]
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train_ncsn.main(base)
-    for extra in (["--distill"], ["--snapshot_sampling"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_ncsn.main([*base, *extra, "--device=cpu"])
+    for extra in ([], ["--distill"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_ncsn.main([*base, *extra])
+    # --distill runs (tests/test_torch_distill.py); these are not ported.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_ncsn.main([*base, "--snapshot_sampling", "--device=cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_ncsn.main([*base, "--model_parallelism=2", "--device=cpu"])
 

@@ -638,3 +638,143 @@ def test_standard_model_flash_route_matches_plain(cuda):
         model(x[:, :32], t)
         assert fa.flash_attention.launches == before + 2
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)  # float32
+
+
+# -- few-step chains and distillation through the kernels ---------------------
+
+_CHAIN_KW = dict(data_channels=42, num_layers=2, num_heads=8,
+                 num_mlp_layers=2, mlp_dims=256, embed_channels=128)
+# (seq_len, batch, wrapper, launches per model call, tolerance). The fused
+# layout at bf16 is held in norm, |kernel - plain| <= 0.1 |plain|: x0 =
+# (x - sigma·eps)/alpha carries the model's bf16 rounding times 1/alpha
+# into single elements (chip_smoke.py's CHAIN_RTOL); the int8 head and the
+# standard layout at S=512 in float32 elementwise to 1e-3 (the w8a8
+# kernel's sums are exact; flash within 1e-5 a call, times 1/alpha <= 12).
+_LAYOUTS = {
+    "fused": (32, 4, lambda: (fat.fused_ln_attention,
+                              ffr.fused_ln_film_swish_dense), (2, 4), 0.1),
+    "int8": (32, 4, lambda: (qmm.w8a8_dense,), (4,), 1e-3),
+    "standard": (512, 2, lambda: (_flash_wrapper(),), (2,), 1e-3),
+}
+
+
+def _flash_wrapper():
+    from smd_tpu_torch.ops import flash_attention as fa
+    return fa.flash_attention
+
+
+def _layout_model(dev, layout):
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.fuse import (calibrate_head_act_scales,
+                                           quantize_head_params)
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    if layout == "fused":
+        model = get_model("TransformerDDPM", device=dev, fused_attention=True,
+                          fused_head=True, dtype=BF16, **_CHAIN_KW)
+        load_flax_params(model, random_flax_params(model, seed=0))
+        return model.to(BF16)
+    if layout == "int8":
+        std = get_model("TransformerDDPM", device="cpu", **_CHAIN_KW)
+        tree = quantize_head_params(random_flax_params(std, seed=0))
+        model = get_model("TransformerDDPM", device=dev, quantized_head=True,
+                          quantized_head_kernel=True, **_CHAIN_KW)
+        g = torch.Generator(device=dev).manual_seed(3)
+        cal = [(torch.randn(4, 32, 42, generator=g, device=dev),
+                torch.rand(4, 1, 1, generator=g, device=dev))]
+        return load_flax_params(model, calibrate_head_act_scales(
+            model, tree, cal))
+    model = get_model("TransformerDDPM", device=dev, **_CHAIN_KW)
+    return load_flax_params(model, random_flax_params(model, seed=0))
+
+
+@pytest.mark.parametrize("layout", ["fused", "int8", "standard"])
+@pytest.mark.parametrize("sampling,steps", [("ddim", 5), ("dpmpp", 4),
+                                            ("distilled", 2)])
+def test_fewstep_chain_through_the_kernels_matches_plain(cuda, layout,
+                                                         sampling, steps):
+    """A short few-step chain of ``generate.sample`` through each layout's
+    kernels against the same chain, same generator, through the plain
+    versions; each model call launches its layout's kernels."""
+    from smd_tpu_torch.diffusion import schedules
+    from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.training import distill
+    seq_len, batch, wrappers, per_call, tol = _LAYOUTS[layout]
+    model = _layout_model(cuda, layout).eval()
+    dtype = next(model.parameters()).dtype
+    betas = schedules.noise_schedule(1e-6, 0.01, 100, "linear")
+
+    def model_fn(x, c):
+        return model(x.to(dtype), c.to(dtype)).float()
+
+    def run():
+        g = torch.Generator(device=cuda).manual_seed(4)
+        out, _, _ = generate.sample(
+            model_fn, betas, g, (seq_len, 42), num_samples=batch,
+            sampling=sampling, ddim_steps=steps, collect_steps=0,
+            collect_metrics=False,
+            distill_grid=distill.distill_grid(betas, steps), device=cuda)
+        return out
+
+    with torch.no_grad():
+        model_fn(torch.zeros(batch, seq_len, 42, device=cuda),
+                 torch.full((batch, 1, 1), 0.5, device=cuda))
+        before = [w.launches for w in wrappers()]
+        out = run()
+        torch.cuda.synchronize()
+        assert [w.launches - b for w, b in zip(wrappers(), before)] == \
+            [steps * n for n in per_call]
+        model.use_plain_ops(True)
+        ref = run()
+        model.use_plain_ops(False)
+    assert torch.isfinite(out).all()
+    if layout == "fused":
+        assert (out - ref).norm() <= tol * ref.norm()
+    else:
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+def test_distillation_gradient_through_the_kernels(cuda):
+    """A progressive-distillation loss gradient through the fused kernels
+    (the teacher twice without a gradient, the student once) against the
+    plain versions', in float32 and without the x0 clip: every parameter
+    within 1e-3 of its norm (the kernels within 1e-4 a call). The clip
+    makes the gradient jump where an x0 element crosses +-1, so a
+    last-bit difference could move it by far more (chip_smoke.py, phase
+    16)."""
+    from smd_tpu_torch.diffusion import schedules
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.training import distill
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device=cuda, fused_attention=True,
+                      fused_head=True, **_CHAIN_KW)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    teacher = distill.frozen_copy(model, dict(model.named_parameters()))
+    grid, mids = distill.halve_grid(distill.distill_grid(
+        schedules.noise_schedule(1e-6, 0.01, 1000, "linear"), 8))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batch = torch.rand(16, 32, 42, generator=g, device=cuda) * 2 - 1
+    draws = (torch.randint(0, 4, (16,), generator=g, device=cuda),
+             torch.randn(batch.shape, generator=g, device=cuda))
+    params = list(model.parameters())
+
+    def grads():
+        loss = distill.progressive_distillation_loss(
+            batch, model, teacher, grid, mids, clip_x0=False, draws=draws)
+        return torch.autograd.grad(loss, params)
+
+    before = (fat.fused_ln_attention.launches,
+              ffr.fused_ln_film_swish_dense.launches)
+    ours = grads()
+    assert (fat.fused_ln_attention.launches,
+            ffr.fused_ln_film_swish_dense.launches) == (before[0] + 3 * 2,
+                                                        before[1] + 3 * 4)
+    for m in (model, teacher):
+        m.use_plain_ops(True)
+    ref = grads()
+    for m in (model, teacher):
+        m.use_plain_ops(False)
+    for a, b in zip(ours, ref):
+        assert torch.isfinite(a).all()
+        assert (a - b).norm() <= 1e-3 * b.norm()

@@ -1,6 +1,6 @@
 """The port stands alone and keeps to the device rule.
 
-``smd_tpu_torch/``, ``chip_smoke.py`` and ``profile_torch_sampler.py`` import
+``smd_tpu_torch/``, ``chip_smoke.py`` and the card scripts beside it import
 nothing of JAX, its ecosystem or the JAX package; entry points called
 without ``device="cpu"`` raise when there is no GPU.
 """
@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "absl",
 def _port_files():
     files = sorted((ROOT / "smd_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_torch_sampler.py",
-              ROOT / "profile_torch_train.py"]
+              ROOT / "profile_torch_train.py",
+              ROOT / "study_torch_tolerances.py"]
     return files
 
 

@@ -126,9 +126,11 @@ def test_generate_sample_ddpm_on_cpu():
 
 
 def test_unported_samplers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate.sample(None, None, None, (S, C), sampling="ddim",
-                        device="cpu")
+    """The NCSN family's samplers (``ald``, the default, and ``cas``)."""
+    for sampling in ("ald", "cas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            generate.sample(None, None, None, (S, C), sampling=sampling,
+                            device="cpu")
     with pytest.raises(ValueError):
         generate.sample(None, None, None, (S, C), sampling="nope",
                         device="cpu")
