@@ -102,6 +102,24 @@ Phases, one flushed line each with its seconds:
     latents kept), distilled-2 and consistency-1, 64 requests each, each
     ``ncsn/generated.pkl`` finite and of the right shape.
 
+18. dense DDPM: ``configs/ddpm-mel-1seq-512.cfg`` (DenseDDPM, 6 x 2048,
+    batch 64, T=1000) trained 40 steps on seeded 512-d latents written as
+    TFRecords (2,560 train, 1,024 eval): every loss finite, the last 10
+    steps' mean below the first; one float32 forward on the card against
+    the same model on the CPU (CPU_RTOL); the checkpoint served through
+    ``sample_ncsn``, 1000 DDPM steps on 1000 requests.
+19. NCSN: ``configs/ncsn-mel-1seq-512.cfg`` (DenseNCSN 6 x 2048, DSM, 500
+    sigmas from 15, batch 128) trained 40 steps, the loss falling; 5 SSM
+    steps of the same network (a double backward), finite loss and
+    gradient norm; ``sample_ncsn --sampling=cas`` at the 500 levels and
+    ``--sampling=ald`` at the 500 levels with ``--ld_steps`` cut from 100
+    to 10, 1000 requests each, with ms per model call.
+20. ConvNCSN forward and backward on 64x32x42 against the CPU; the toy
+    flagfiles ``mixture-single-2.cfg`` (ToyNCSN, SSM, continuous noise)
+    and ``mixture-single-ddpm-2.cfg`` (ToyDDPM) trained 20 steps each on
+    the 2-D mixture. No kernel launches in phases 18-20: these networks
+    run the plain ``DenseResBlock``, as the JAX package's do.
+
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
 
@@ -173,6 +191,23 @@ SLICE_MEL_512 = (12, 14, 24, 36, 41, 62, 73, 135, 154, 156, 167, 175, 177,
 # versions sum in float32; a flip of one bf16 ulp (2**-8) in an activation
 # carries through the later layers' backward.
 GRAD_RTOL = 5e-2
+
+# The tensor-core attention kernel against ``_tc_emulation``, a plain
+# PyTorch version of its own bf16 arithmetic, on the same inputs, in bf16
+# ulps of the output (``fused_attention.tc_ulp_stats``): the share of
+# elements that are not bit-equal, and the mean signed difference. A clean
+# kernel differs only where the float32 summation order or exp2f flips a
+# rounding, so both sit near 0 and the mean has no sign of its own; a fault
+# of one ulp in every output reads (1, +-1). The limits sit above the clean
+# readings of the bench-shape call at ATTN_EMU_SEEDS (printed each run),
+# and the kernels phase plants that fault and fails unless they catch it.
+ATTN_EMU_SEEDS = (100, 101, 102, 103, 104)
+# Clean readings over seeds 100-109 (NVIDIA H100 80GB HBM3, 700 W): share
+# 0.65-0.84%, mean -0.042..+0.063 ulps (0.3% of elements one ulp off, 0.05%
+# three or more: outputs near 0, whose ulps are tiny); the planted fault
+# (0.997, 0.96..1.06).
+ATTN_EMU_MAX_SHARE = 0.02
+ATTN_EMU_MAX_MEAN_ULP = 0.25
 
 KERNELS = ("fused_ln_attention", "fused_ln_film_swish_dense", "w8a8_dense",
            "flash_attention")
@@ -431,6 +466,7 @@ def phase_kernels():
     # bf16 LN rows, q, k, v, p and o on the way (a CPU emulation of that
     # arithmetic keeps within this rule), bf16 out.
     err = check_close("attention", out, ref, atol=2e-2, rtol=1e-2)
+    _attn_emulation_check(x, ws, out, H)
     t_p = time_ms(lambda: fat._reference(x, *ws, H, False), iters=10)
     R = B * S
     moved = 2 * (2 * R * E) + 2 * (3 * E * E + 3 * E + E * E + 3 * E)
@@ -489,6 +525,63 @@ def phase_kernels():
     records["flash_attention"] = _flash_kernel_checks(gen)
     torch.cuda.synchronize()
     return records
+
+
+def _attn_emulation_check(x, ws, out, H):
+    """The bench-shape call ``out`` and calls at ATTN_EMU_SEEDS against
+    ``_tc_emulation`` within the limits; then a planted one-ulp fault,
+    which must read beyond them."""
+    from smd_tpu_torch.ops import fused_attention as fat
+
+    def within(stats):
+        return stats[0] <= ATTN_EMU_MAX_SHARE and \
+            abs(stats[1]) <= ATTN_EMU_MAX_MEAN_ULP
+
+    readings = [fat.tc_ulp_stats(out, fat._tc_emulation(x, *ws, H, False))]
+    for seed in ATTN_EMU_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        xs, wss = _attn_inputs(BENCH_BATCH, SEQ_LEN, x.shape[-1],
+                               torch.bfloat16, g)
+        readings.append(fat.tc_ulp_stats(
+            fat.fused_ln_attention(xs, *wss, H, False),
+            fat._tc_emulation(xs, *wss, H, False)))
+    say("attention vs its bf16 emulation, bench shape, clean (share not "
+        "bit-equal, mean signed ulps): " + ", ".join(
+            f"({a:.4e}, {b:+.4e})" for a, b in readings) +
+        f"; the first the record's call, then seeds {list(ATTN_EMU_SEEDS)}")
+    bad = [r for r in readings if not within(r)]
+    if bad:
+        fail(f"the tensor-core attention kernel differs from its bf16 "
+             f"emulation by {bad} (share, mean ulps), beyond the limits "
+             f"({ATTN_EMU_MAX_SHARE}, {ATTN_EMU_MAX_MEAN_ULP})")
+    with _attn_one_ulp_up():
+        faulty = fat.fused_ln_attention(x, *ws, H, False)
+    planted = fat.tc_ulp_stats(faulty, fat._tc_emulation(x, *ws, H, False))
+    if within(planted):
+        fail(f"a one-ulp fault planted in the attention kernel reads "
+             f"{planted} against its emulation, within the limits: the "
+             "check cannot see it")
+    say(f"planted fault, every attention output one bf16 ulp up: "
+        f"({planted[0]:.4e}, {planted[1]:+.4e}), beyond the limits "
+        f"({ATTN_EMU_MAX_SHARE}, {ATTN_EMU_MAX_MEAN_ULP}), as it must be")
+
+
+@contextlib.contextmanager
+def _attn_one_ulp_up():
+    """A planted fault: each fused-attention kernel launch returns its
+    output moved one bf16 ulp towards +inf."""
+    from smd_tpu_torch.ops import fused_attention as fat
+    launch = fat._launch
+
+    def faulty(*args):
+        out = launch(*args)
+        return torch.nextafter(out, torch.full_like(out, float("inf")))
+
+    fat._launch = faulty
+    try:
+        yield
+    finally:
+        fat._launch = launch
 
 
 def _w8a8_inputs(M, K, N, dtype, gen, bias=True):
@@ -758,6 +851,23 @@ def _standard_flagship():
     return model, model_fn
 
 
+def _dense_ddpm():
+    """``configs/ddpm-mel-1seq-512.cfg``'s DenseDDPM (the flag defaults' 6
+    x 2048) with weights from a seed, cast to bf16 as ``sample_ncsn``
+    serves it: the input Dense in bf16, the resblocks in float32."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("DenseDDPM", device="cuda", data_channels=FLAT_WIDTH,
+                      num_layers=6, mlp_dims=2048)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model = model.to(torch.bfloat16).eval()
+
+    def model_fn(x, cond):
+        return model(x.to(torch.bfloat16), cond.to(torch.bfloat16)).float()
+    return model, model_fn
+
+
 def _wrappers():
     from smd_tpu_torch.ops import flash_attention as fa
     from smd_tpu_torch.ops import fused_attention as fat
@@ -901,11 +1011,12 @@ class StepLog:
 
     def __init__(self, window=None):
         self.window = window
-        self.steps, self.losses, self.marks = [], [], {}
+        self.steps, self.losses, self.grads, self.marks = [], [], [], {}
 
     def __call__(self, step, metrics):
         self.steps.append(step)
         self.losses.append(metrics["loss"])
+        self.grads.append(metrics["grad"])
         if self.window and step in self.window:
             torch.cuda.synchronize()
             self.marks[step] = time.perf_counter()
@@ -915,20 +1026,21 @@ class StepLog:
         return 1e3 * (self.marks[b] - self.marks[a]) / (b - a)
 
 
-def _train(argv, window=None):
-    """``train_ncsn.main`` on the flagfile plus ``argv``; fails unless every
+def _train(argv, window=None, flagfile=FLAGFILE):
+    """``train_ncsn.main`` on ``flagfile`` plus ``argv``; fails unless every
     loss is finite and no kernel launched (the standard layout at S=32
-    takes the einsum and the float head). Returns (state, log, losses)."""
+    takes the einsum and the float head; the dense and convolutional
+    networks run no kernel). Returns (state, log, losses)."""
     from smd_tpu_torch import train_ncsn
     steps = StepLog(window)
     _reset_counts()
-    state = train_ncsn.main(["train_ncsn", f"--flagfile={FLAGFILE}", *argv],
+    state = train_ncsn.main(["train_ncsn", f"--flagfile={flagfile}", *argv],
                             step_callback=steps)
     torch.cuda.synchronize()
     counts = _counts()
     if counts != per_call_launches("standard"):
-        fail(f"training the standard layout launched (attention, film, "
-             f"w8a8, flash) {counts}, expected none")
+        fail(f"training {flagfile} launched (attention, film, w8a8, flash) "
+             f"{counts}, expected none")
     losses = torch.stack(steps.losses).float().cpu()
     if not torch.isfinite(losses).all():
         fail(f"non-finite training loss at steps "
@@ -1559,6 +1671,235 @@ def phase_fewstep_clis(tmp, smi):
             f"ncsn/generated.pkl {flushed.shape}, finite")
 
 
+# The dense networks and the NCSN family (phases 18-20), at the shipped
+# flagfiles' widths: none sets --num_layers or --mlp_dims, so the flag
+# defaults make every one 6 x 2048: DenseDDPM and DenseNCSN on 512-d
+# latents, ToyNCSN and ToyDDPM on the 2-D toy mixture.
+DENSE_FLAGFILE = "configs/ddpm-mel-1seq-512.cfg"
+NCSN_FLAGFILE = "configs/ncsn-mel-1seq-512.cfg"
+TOY_FLAGFILES = ("configs/mixture/mixture-single-2.cfg",
+                 "configs/mixture/mixture-single-ddpm-2.cfg")
+FLAT_WIDTH, FLAT_TRAIN, FLAT_EVAL = 512, 2560, 1024
+FLAT_SERVE = 1000           # requests served in phases 18-19
+DENSE_STEPS, NCSN_STEPS, SSM_STEPS, TOY_STEPS = 40, 40, 5, 20
+# ALD at the flagfile's 500 levels with --ld_steps cut from 100 to 10:
+# 5,000 model calls in place of 50,000.
+ALD_STEPS = 10
+# A float32 model on the card against the same model on the CPU (TF32 off):
+# |out_card - out_cpu| <= RTOL * |out_cpu| in norm, and each parameter's
+# gradient likewise. Float32 sums in other orders, and the x5000 noise
+# encoding's one-ulp sin/exp differences between the two devices' math
+# libraries (tests/test_torch_blocks.py), carried through 6 FiLM blocks.
+# Read on the card (NVIDIA H100 80GB HBM3, 700 W): DenseDDPM 4.9e-6,
+# ConvNCSN 2.5e-6 and its worst gradient 4.7e-6.
+CPU_RTOL = 1e-4
+
+
+def _write_flat_latents(root):
+    """Seeded 512-d latents as the ``flatten`` script writes them: a
+    16-dimensional structure mapped to 512 dims, plus noise."""
+    from smd_tpu_torch.data import records
+    rng = np.random.default_rng(1)
+    mix = rng.normal(size=(16, FLAT_WIDTH)) / 4
+    for split, n in (("train", FLAT_TRAIN), ("eval", FLAT_EVAL)):
+        z = rng.normal(size=(n, 16)) @ mix + \
+            0.1 * rng.normal(size=(n, FLAT_WIDTH))
+        records.write_tfrecord(f"{root}/{split}-0.tfrecord",
+                               z.astype(np.float32))
+
+
+def _falls(what, losses, last=10):
+    first, tail = float(losses[0]), float(losses[-last:].mean())
+    if not tail < first:
+        fail(f"{what}: the last {last} steps' mean loss {tail:.4f} is not "
+             f"below the first step's {first:.4f}")
+    return first, tail
+
+
+def _vs_cpu(what, model, args, grads=False):
+    """``model`` (float32, on the card) against a copy on the CPU on the
+    same inputs: the output's and, with ``grads``, each parameter's
+    gradient of mean(out^2), each within CPU_RTOL of its norm. Returns
+    (output's relative error, max |err|, worst gradient's, its name)."""
+    import copy
+    cpu = copy.deepcopy(model).cpu()
+
+    def run(m, inputs):
+        with torch.set_grad_enabled(grads):
+            out = m(*inputs)
+            g = torch.autograd.grad(out.square().mean(),
+                                    list(m.parameters())) if grads else ()
+        return out.detach(), g
+
+    out, g_card = run(model, args)
+    ref, g_cpu = run(cpu, [a.cpu() for a in args])
+    out = out.cpu()
+    if not torch.isfinite(out).all():
+        fail(f"{what}: non-finite output on the card")
+    rel = float((out - ref).norm() / ref.norm())
+    worst, worst_name = 0.0, None
+    for (name, _), a, b in zip(model.named_parameters(), g_card, g_cpu):
+        r = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        if r > worst:
+            worst, worst_name = r, name
+    if rel > CPU_RTOL or worst > CPU_RTOL:
+        fail(f"{what} on the card differs from the CPU's by {rel:.3e} of "
+             f"the output's norm, {worst:.3e} of {worst_name}'s gradient "
+             f"(tolerance {CPU_RTOL})")
+    return rel, float((out - ref).abs().max()), worst, worst_name
+
+
+def _serve_cli(argv, what, smi, shape, calls):
+    """``sample_ncsn.main`` on ``argv`` (no flush), timed whole and in its
+    ``generate.sample`` call alone (between two synchronizes); fails unless
+    the samples are finite, of ``shape``, and no kernel launched."""
+    from smd_tpu_torch import sample_ncsn
+    from smd_tpu_torch.sampling import generate
+    sample, chain = generate.sample, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(*args, **kwargs)
+        torch.cuda.synchronize()
+        chain.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    generate.sample = timed
+    try:
+        gen, _ = sample_ncsn.main(["sample_ncsn", *argv, "--noflush"])
+    finally:
+        generate.sample = sample
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if _counts() != per_call_launches("standard"):
+        fail(f"sample_ncsn {what} launched {_counts()}, expected none")
+    if gen.shape != shape or not np.isfinite(gen).all():
+        fail(f"sample_ncsn {what}: samples {gen.shape}, expected {shape} "
+             "and finite")
+    say(f"sample_ncsn {what}: {shape[0]} requests of {shape[1:]}, the "
+        f"chain {chain[0]:.3f} s = {shape[0] / chain[0]:.1f} seqs/s, "
+        f"{1e3 * chain[0] / calls:.3f} ms per model call ({calls} calls; "
+        f"metrics and snapshots collected, as the CLI does), {seconds:.3f} "
+        f"s with flags, data and model load, on {smi}; samples in "
+        f"[{float(gen.min()):.3f}, {float(gen.max()):.3f}]")
+    return chain[0]
+
+
+def phase_dense_ddpm(tmp, smi):
+    """DenseDDPM from ``configs/ddpm-mel-1seq-512.cfg``: trained, held
+    against the CPU, its checkpoint served through ``sample_ncsn``."""
+    from smd_tpu_torch import cli
+    data = f"{tmp}/flat"
+    _write_flat_latents(data)
+    base = [f"--dataset={data}", f"--model_dir={tmp}/dense",
+            f"--max_steps={DENSE_STEPS}", f"--snapshot_freq={DENSE_STEPS}",
+            "--logging_freq=10"]
+    state, steps, losses = _train(base, window=(10, DENSE_STEPS),
+                                  flagfile=DENSE_FLAGFILE)
+    first, tail = _falls("DenseDDPM", losses)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    say(f"trained float32 {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} "
+        f"x {cli.FLAGS.mlp_dims}, {n_params / 1e6:.2f} M params, batch "
+        f"{cli.FLAGS.batch_size}, T={cli.FLAGS.num_sigmas}): "
+        f"{DENSE_STEPS} steps, loss first {first:.4f}, mean of the last 10 "
+        f"{tail:.4f}; {steps.ms_per_step():.3f} ms/step (wall, steps "
+        f"10-{DENSE_STEPS}, data input included) on {smi}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(64, FLAT_WIDTH, generator=gen, device="cuda")
+    t = torch.rand(64, 1, generator=gen, device="cuda") * 0.95 + 0.05
+    rel, err, _, _ = _vs_cpu("DenseDDPM", state.model.eval(), (x, t))
+    say(f"DenseDDPM float32 forward on 64x{FLAT_WIDTH}, card vs CPU: "
+        f"{rel:.3e} of the norm, max|err| {err:.3e} (tolerance {CPU_RTOL})")
+    _serve_cli([f"--flagfile={DENSE_FLAGFILE}", *base, "--sampling=ddpm",
+                f"--sample_size={FLAT_SERVE}"], "DenseDDPM ddpm T=1000",
+               smi, (FLAT_SERVE, FLAT_WIDTH), 1000)
+
+
+def phase_ncsn(tmp, smi):
+    """DenseNCSN from ``configs/ncsn-mel-1seq-512.cfg`` (6 x 2048): DSM
+    training, a few SSM steps (the double backward), then CAS at the
+    flagfile's 500 levels and ALD at 500 levels with ``--ld_steps`` cut to
+    10."""
+    from smd_tpu_torch import cli
+    data = f"{tmp}/flat"
+    base = [f"--dataset={data}", "--nosnapshot_sampling",
+            f"--snapshot_freq={NCSN_STEPS}", "--logging_freq=10"]
+    state, steps, losses = _train(
+        [*base, f"--model_dir={tmp}/ncsn", f"--max_steps={NCSN_STEPS}"],
+        window=(10, NCSN_STEPS), flagfile=NCSN_FLAGFILE)
+    first, tail = _falls("DenseNCSN dsm", losses)
+    say(f"trained float32 {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} "
+        f"x {cli.FLAGS.mlp_dims}, batch {cli.FLAGS.batch_size}, "
+        f"{cli.FLAGS.loss}, {cli.FLAGS.num_sigmas} sigmas from "
+        f"{cli.FLAGS.sigma_begin}): {NCSN_STEPS} steps, loss first "
+        f"{first:.4f}, mean of the last 10 {tail:.4f}; "
+        f"{steps.ms_per_step():.3f} ms/step (wall, steps 10-{NCSN_STEPS}, "
+        f"data input included) on {smi}")
+    _, ssm, losses = _train(
+        [*base, f"--model_dir={tmp}/ssm", f"--max_steps={SSM_STEPS}",
+         "--loss=ssm"], flagfile=NCSN_FLAGFILE)
+    grads = torch.stack(ssm.grads).float().cpu()
+    if not torch.isfinite(grads).all():
+        fail(f"non-finite SSM gradient norm: {grads.tolist()}")
+    say(f"SSM on {cli.FLAGS.architecture} {cli.FLAGS.num_layers} x "
+        f"{cli.FLAGS.mlp_dims} (double backward), {SSM_STEPS} steps: "
+        f"losses {[round(float(v), 3) for v in losses]}, gradient norms "
+        f"{[round(float(v), 3) for v in grads]}")
+    serve = [f"--flagfile={NCSN_FLAGFILE}", *base, f"--model_dir={tmp}/ncsn",
+             f"--sample_size={FLAT_SERVE}"]
+    levels = cli.FLAGS.num_sigmas
+    _serve_cli([*serve, "--sampling=cas"], f"DenseNCSN cas, {levels} levels",
+               smi, (FLAT_SERVE, FLAT_WIDTH), levels + 1)
+    _serve_cli([*serve, "--sampling=ald", f"--ld_steps={ALD_STEPS}"],
+               f"DenseNCSN ald, {levels} levels x {ALD_STEPS} steps "
+               f"(--ld_steps cut from 100: {levels * ALD_STEPS} model calls "
+               f"in place of {levels * 100})", smi, (FLAT_SERVE, FLAT_WIDTH),
+               levels * ALD_STEPS + 1)
+
+
+def phase_conv_toy(tmp, smi):
+    """ConvNCSN forward and backward on 64x32x42 against the CPU; the two
+    toy flagfiles trained a few steps on the 2-D mixture."""
+    from smd_tpu_torch import cli
+    from smd_tpu_torch.data import records
+    from smd_tpu_torch.data.synthetic import toy_distribution
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.models.layers import init_parameters
+    model = init_parameters(get_model("ConvNCSN", device="cuda",
+                                      data_channels=CHANNELS), seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                    device="cuda")
+    sig = torch.rand(SERVE_BATCH, 1, 1, generator=gen, device="cuda") + 0.1
+    rel, err, worst, name = _vs_cpu("ConvNCSN", model, (x, sig), grads=True)
+    say(f"ConvNCSN float32 forward and backward on {SERVE_BATCH}x{SEQ_LEN}x"
+        f"{CHANNELS}, card vs CPU: output {rel:.3e} of the norm (max|err| "
+        f"{err:.3e}), worst gradient {worst:.3e} ({name}); tolerance "
+        f"{CPU_RTOL}")
+    toy = f"{tmp}/toy"
+    rng = np.random.default_rng(2)
+    for split, n in (("train", 2048), ("eval", 512)):
+        records.write_tfrecord(f"{toy}/{split}-0.tfrecord",
+                               toy_distribution(n, rng))
+    for flagfile in TOY_FLAGFILES:
+        _, steps, losses = _train(
+            [f"--dataset={toy}",
+             f"--model_dir={tmp}/{os.path.basename(flagfile)[:-4]}",
+             "--nosnapshot_sampling", f"--max_steps={TOY_STEPS}",
+             f"--snapshot_freq={TOY_STEPS}", "--logging_freq=10"],
+            window=(5, TOY_STEPS), flagfile=flagfile)
+        say(f"{flagfile}: {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} x "
+            f"{cli.FLAGS.mlp_dims}, {cli.FLAGS.loss}, continuous noise "
+            f"{cli.FLAGS.continuous_noise}, batch {cli.FLAGS.batch_size}) "
+            f"{TOY_STEPS} steps, losses {float(losses[0]):.4f} .. "
+            f"{float(losses[-1]):.4f}, {steps.ms_per_step():.3f} ms/step on "
+            f"{smi}")
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -1605,6 +1946,12 @@ def main():
             served.extend(phase_distill(state, smi))
         with Phase("17 the CLIs"):
             phase_fewstep_clis(tmp, smi)
+        with Phase("18 dense DDPM"):
+            phase_dense_ddpm(tmp, smi)
+        with Phase("19 NCSN"):
+            phase_ncsn(tmp, smi)
+        with Phase("20 ConvNCSN and the toy networks"):
+            phase_conv_toy(tmp, smi)
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a DDPM sampler step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_sampler.py [--layout fused|int8|standard]
+    python3 profile_torch_sampler.py [--layout fused|int8|standard|dense]
                                      [--batch 64] [--seq_len 32] [--steps 20]
 
 Serves a bf16 flagship TransformerDDPM of ``chip_smoke.py`` on
@@ -10,7 +10,10 @@ Serves a bf16 flagship TransformerDDPM of ``chip_smoke.py`` on
 layouts: ``fused`` (the fused attention and film kernels), ``int8`` (the
 standard einsum trunk and the w8a8 kernel, quantized and calibrated as
 there) and ``standard`` (the einsum trunk, or the flash-attention kernel at
-``--seq_len`` >= 512, and the float head). It prints: wall seconds per step
+``--seq_len`` >= 512, and the float head); ``dense`` serves
+``configs/ddpm-mel-1seq-512.cfg``'s DenseDDPM (6 x 2048, bf16 params as
+``sample_ncsn`` serves them; resblocks in float32) on 512-d latents
+(``--seq_len`` unused). It prints: wall seconds per step
 (host clock around a synchronised run), the device's busy time per step
 (union of the kernels' intervals in the trace) and its idle share, the
 device time by kind (the port's kernels, the library's matmuls, PyTorch's
@@ -27,13 +30,12 @@ import torch
 import chip_smoke
 
 
-def _serve(model_fn, steps, batch, seq_len, seed):
+def _serve(model_fn, steps, batch, shape, seed):
     from smd_tpu_torch.diffusion import schedules
     from smd_tpu_torch.sampling import generate
     betas = schedules.noise_schedule(1e-6, 0.01, steps, "linear")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return generate.sample(model_fn, betas, gen,
-                           (seq_len, chip_smoke.CHANNELS),
+    return generate.sample(model_fn, betas, gen, shape,
                            num_samples=batch, sampling="ddpm",
                            collect_steps=0, collect_metrics=False,
                            device="cuda")[0]
@@ -57,17 +59,22 @@ def main():
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq_len", type=int, default=chip_smoke.SEQ_LEN)
-    ap.add_argument("--layout", choices=chip_smoke.LAYOUTS, default="fused",
-                    help="fused kernels, the int8 head through w8a8, or the "
-                         "standard layout (flash attention at S >= 512)")
+    ap.add_argument("--layout", choices=(*chip_smoke.LAYOUTS, "dense"),
+                    default="fused",
+                    help="fused kernels, the int8 head through w8a8, the "
+                         "standard layout (flash attention at S >= 512), or "
+                         "the single-latent DenseDDPM")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
     _, model_fn = {"fused": chip_smoke._flagship,
                    "int8": chip_smoke._int8_flagship,
-                   "standard": chip_smoke._standard_flagship}[args.layout]()
-    run = (args.steps, args.batch, args.seq_len)
+                   "standard": chip_smoke._standard_flagship,
+                   "dense": chip_smoke._dense_ddpm}[args.layout]()
+    shape = (chip_smoke.FLAT_WIDTH,) if args.layout == "dense" else \
+        (args.seq_len, chip_smoke.CHANNELS)
+    run = (args.steps, args.batch, shape)
     with torch.no_grad():
-        _serve(model_fn, 3, args.batch, args.seq_len, 0)
+        _serve(model_fn, 3, args.batch, shape, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _serve(model_fn, *run, 1)

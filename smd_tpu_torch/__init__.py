@@ -20,10 +20,13 @@ Subpackages
 -----------
 - ``smd_tpu_torch.data``: the TF-free TFRecord writer, reader and input
   pipeline, and numpy copies of the latent transforms.
-- ``smd_tpu_torch.diffusion``: noise schedules, the DDPM loss, the DDPM,
-  DDIM, DPM-Solver++, distilled and consistency samplers.
+- ``smd_tpu_torch.diffusion``: noise schedules, the DDPM loss, denoising and
+  sliced score matching, the annealed and consistent Langevin samplers, the
+  DDPM, DDIM, DPM-Solver++, distilled and consistency samplers, the replay
+  buffer.
 - ``smd_tpu_torch.models``: TransformerDDPM in the standard and fused layouts
-  and with the int8 serving head.
+  and with the int8 serving head; DenseDDPM, DenseNCSN, ConvNCSN, ToyDDPM
+  and ToyNCSN.
 - ``smd_tpu_torch.ops``: kernel wrappers, their plain versions, the build.
 - ``smd_tpu_torch.sampling``: the generation drivers (sampling, infilling,
   interpolation).
@@ -31,6 +34,8 @@ Subpackages
   loop; progressive and consistency distillation.
 - ``smd_tpu_torch.utils``: the Flax params tree -> module weight carrier,
   checkpoints, logging.
+- ``smd_tpu_torch.scripts``: the dataset scripts (``transform_encoded_data``,
+  ``generate_compressed_transform``).
 - ``smd_tpu_torch.cli``, ``smd_tpu_torch.train_ncsn``,
   ``smd_tpu_torch.sample_ncsn``: the flags (parsed without absl) and the
   training (and distillation) and sampling entry points.

@@ -28,7 +28,8 @@ from smd_tpu_torch.training.diffusion import TrainConfig
 
 __all__ = ["FLAGS", "Flags", "FlagsError", "define_common_flags",
            "define_diffusion_flags", "define_sampling_flags",
-           "train_config_from_flags", "model_from_flags", "serving_model_fn",
+           "train_config_from_flags", "model_from_flags", "latent_width",
+           "serving_model_fn",
            "schedule_from_flags", "dataset_from_flags",
            "load_transforms_from_flags", "restore_state_for_sampling"]
 
@@ -374,6 +375,21 @@ def model_from_flags(data_channels: int, mdn: bool = False, dtype=None,
                      data_channels=data_channels, **kwargs)
 
 
+# Where a params tree of each architecture holds the latent width: the
+# input layer's kernel, and its axis of input channels.
+_INPUT_KERNEL = {"TransformerDDPM": ("TransformerEncoder_0.Dense_0.kernel", 0),
+                 "TransformerDDPM4": ("TransformerEncoder_0.Dense_0.kernel",
+                                      0),
+                 "ConvNCSN": ("Conv_0.kernel", 1)}
+
+
+def latent_width(params: Dict[str, torch.Tensor]) -> int:
+    """The latent width of ``--architecture``'s params tree: the rows of
+    the first Dense's kernel, or ConvNCSN's input channels."""
+    key, axis = _INPUT_KERNEL.get(FLAGS.architecture, ("Dense_0.kernel", 0))
+    return params[key].shape[axis]
+
+
 def serving_model_fn(params: Dict[str, torch.Tensor], mdn: bool = False):
     """(x, cond) -> float32 output closure over ``params`` ({name: tensor},
     e.g. ``state.sampling_params``), honoring ``--sampling_dtype``.
@@ -385,7 +401,7 @@ def serving_model_fn(params: Dict[str, torch.Tensor], mdn: bool = False):
     No gradient is recorded.
     """
     device = resolve_device(FLAGS.device)
-    channels = params["TransformerEncoder_0.Dense_0.kernel"].shape[0]
+    channels = latent_width(params)
     if "sampling_dtype" in FLAGS and FLAGS.sampling_dtype == "bfloat16" \
             and device.type != "cpu":
         dtype = torch.bfloat16

@@ -1,14 +1,16 @@
 """Training objectives (port of ``smd_tpu/diffusion/losses.py``).
 
-``diffusion_loss``, the DDPM epsilon-MSE with continuous ᾱ conditioning,
-and ``reduce_fn``. The score-matching objectives (``dsm``, ``ssm``) and the
-MDN NLL belong to the NCSN family and the MDN baseline, still to port
-(``ROADMAP.md`` queue A, items 8 and 9).
+``diffusion_loss``, the DDPM epsilon-MSE with continuous ᾱ conditioning;
+the NCSN family's denoising and sliced score matching
+(``denoising_score_matching_loss``, ``sliced_score_matching_loss``); the
+small losses (``mean_squared_error``, ``series_loss``,
+``binary_cross_entropy_with_logits``, ``sigmoid_cross_entropy``,
+``kl_divergence_std_normal``) and ``reduce_fn``. The MDN NLL belongs to
+the MDN baseline, still to port (``ROADMAP.md`` queue A, item 9).
 
-The objective takes the model as a plain callable ``model_fn(x, cond)``, as
+An objective takes the model as a plain callable ``model_fn(x, cond)``, as
 the JAX one does. Its draws come from a ``torch.Generator``, or from
-pre-drawn ``(labels, u, eps)`` so that a test can replay the JAX package's
-``split(rng, 4)`` draws.
+pre-drawn ``draws`` so that a test can replay the JAX package's splits.
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ import torch
 
 from smd_tpu_torch.diffusion import schedules
 
-__all__ = ["reduce_fn", "padded_alphas_prod", "diffusion_loss"]
+__all__ = ["reduce_fn", "padded_alphas_prod", "diffusion_loss",
+           "denoising_score_matching_loss", "sliced_score_matching_loss",
+           "mean_squared_error", "series_loss",
+           "binary_cross_entropy_with_logits", "sigmoid_cross_entropy",
+           "kl_divergence_std_normal"]
 
 
 def reduce_fn(x, mode):
@@ -92,3 +98,131 @@ def diffusion_loss(batch, model_fn, betas,
     loss = (eps - pred).square()
     loss = loss.mean(dim=tuple(range(1, loss.dim())))
     return reduce_fn(loss, reduction)
+
+
+def _sample_sigmas(sigmas, batch, continuous_noise, labels, u):
+    """Per-example noise levels, (B, 1, ..., 1).
+
+    Discrete: sigma[label] with label in [0, L). Continuous: label in
+    [1, L), then ``jax.random.uniform(minval=sigma[label-1],
+    maxval=sigma[label])``'s arithmetic, ``max(lo, lo + u·(hi - lo))``.
+    The schedule decreases, so hi - lo < 0 and the clamp returns lo:
+    continuous noise conditions on the level before the label, as
+    ``diffusion_loss`` does (``ROADMAP.md`` C.4).
+    """
+    if continuous_noise:
+        lo, hi = sigmas[labels - 1], sigmas[labels]
+        used = torch.maximum(lo, u * (hi - lo) + lo)
+    else:
+        used = sigmas[labels]
+    return used.reshape(batch.shape[0], *([1] * (batch.dim() - 1)))
+
+
+def _score_draws(sigmas, batch, generator, continuous_noise, draws,
+                 probes: bool):
+    """(labels, u, eps[, vectors]) on the batch's device: ``draws`` as
+    given, or from ``generator`` in that order (u only for continuous
+    noise; the Rademacher probes only for SSM)."""
+    device = batch.device
+    if draws is not None:
+        return tuple(None if d is None else torch.as_tensor(d, device=device)
+                     for d in draws)
+    B, L = batch.shape[0], sigmas.shape[0]
+    c = int(continuous_noise)
+    labels = torch.randint(c, L, (B,), generator=generator, device=device)
+    u = torch.rand(B, generator=generator, device=device) if c else None
+    eps = torch.randn(batch.shape, generator=generator, device=device)
+    if not probes:
+        return labels, u, eps
+    vectors = torch.randint(0, 2, batch.shape, generator=generator,
+                            device=device).to(batch.dtype) * 2 - 1
+    return labels, u, eps, vectors
+
+
+def denoising_score_matching_loss(batch, model_fn, sigmas,
+                                  generator: Optional[torch.Generator] = None,
+                                  continuous_noise: bool = False,
+                                  reduction: str = "mean", *,
+                                  draws=None):
+    """DSM for NCSNs: 0.5 ||s(x + σε, σ) + ε/σ||² σ² per example.
+
+    ``draws``: optional ``(labels, u, eps)``, the JAX package's (label,
+    uniform, normal) draws of ``split(rng)`` then ``split`` of the first
+    half (u ignored, may be None, for discrete noise); then ``generator``
+    is not used.
+    """
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32).to(batch.device)
+    labels, u, eps = _score_draws(sigmas, batch, generator,
+                                  continuous_noise, draws, probes=False)
+    used = _sample_sigmas(sigmas, batch, continuous_noise, labels, u)
+    noise = eps * used
+    target = -1.0 / (used ** 2) * noise
+    scores = model_fn(batch + noise, used)
+    B = batch.shape[0]
+    loss = 0.5 * (scores.reshape(B, -1) - target.reshape(B, -1)) \
+        .square().sum(-1)
+    return reduce_fn(loss * used.reshape(B) ** 2, reduction)
+
+
+def sliced_score_matching_loss(batch, model_fn, sigmas,
+                               generator: Optional[torch.Generator] = None,
+                               continuous_noise: bool = False,
+                               reduction: str = "mean", *, draws=None):
+    """Sliced score matching with Rademacher probes v:
+    (0.5 ||s||² + v·(∂(s·v)/∂x)) σ² per example.
+
+    The vector-Jacobian product is ``torch.autograd.grad`` with
+    ``create_graph=True``, so a training step differentiates through it (a
+    double backward). ``draws``: optional ``(labels, u, eps, vectors)``,
+    the JAX package's draws of ``split(rng, 3)``.
+    """
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32).to(batch.device)
+    labels, u, eps, vectors = _score_draws(sigmas, batch, generator,
+                                           continuous_noise, draws,
+                                           probes=True)
+    used = _sample_sigmas(sigmas, batch, continuous_noise, labels, u)
+    perturbed = (batch + eps * used).detach().requires_grad_(True)
+    # Outside a gradient (an eval step) the product is taken and dropped.
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        first_grad = model_fn(perturbed, used)
+        second_grad, = torch.autograd.grad(
+            (first_grad * vectors).sum(), perturbed,
+            create_graph=create_graph)
+    if not create_graph:
+        first_grad = first_grad.detach()
+    B = batch.shape[0]
+    score_loss = 0.5 * first_grad.reshape(B, -1).square().sum(-1)
+    hessian_loss = (vectors * second_grad).reshape(B, -1).sum(-1)
+    return reduce_fn((score_loss + hessian_loss) * used.reshape(B) ** 2,
+                     reduction)
+
+
+def mean_squared_error(logits, labels, reduction="mean"):
+    loss = (logits - labels).square().mean(dim=1)
+    return reduce_fn(loss, reduction)
+
+
+def series_loss(context, true_target, pred_target, reduction="mean"):
+    """Self-similarity + MSE loss over a sequence context."""
+    ss = context @ true_target.T
+    ss_hat = context @ pred_target.T
+    loss = (mean_squared_error(ss.T, ss_hat.T) +
+            mean_squared_error(true_target, pred_target))
+    return reduce_fn(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logits, labels):
+    F = torch.nn.functional
+    return labels * F.softplus(-logits) + (1 - labels) * F.softplus(logits)
+
+
+def sigmoid_cross_entropy(logits, labels, reduction="sum"):
+    F = torch.nn.functional
+    loss = -labels * F.logsigmoid(logits) - \
+        (1.0 - labels) * F.logsigmoid(-logits)
+    return reduce_fn(loss, reduction)
+
+
+def kl_divergence_std_normal(mu, var):
+    return 0.5 * (mu.square() + var - 1 - torch.log(var)).sum()

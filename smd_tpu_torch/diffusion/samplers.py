@@ -1,10 +1,12 @@
-"""DDPM, DDIM, DPM-Solver++ and few-step samplers (port of
+"""Langevin, DDPM, DDIM, DPM-Solver++ and few-step samplers (port of
 ``smd_tpu/diffusion/samplers.py``).
 
-``diffusion_dynamics`` (the 1000-step ancestral chain), ``ddim_dynamics``,
-``dpmpp_dynamics``, ``distilled_ddim_dynamics`` and ``consistency_dynamics``,
-with infill masks, and snapshot collection and per-step metrics where the
-JAX samplers have them; all in the (clipped x0, raw eps) basis as the JAX
+The NCSN family's ``annealed_langevin_dynamics`` (ALD) and
+``consistent_langevin_dynamics`` (CAS); ``diffusion_dynamics`` (the
+1000-step ancestral chain), ``ddim_dynamics``, ``dpmpp_dynamics``,
+``distilled_ddim_dynamics`` and ``consistency_dynamics``; with infill
+masks, and snapshot collection and per-step metrics where the JAX samplers
+have them; the DDPM family in the (clipped x0, raw eps) basis as the JAX
 package is. A JAX sampler is one ``lax.scan`` program; here the steps are a
 Python loop that enqueues each step's kernels without waiting for the device
 (the per-step constants are host floats, computed once in float32 as JAX
@@ -25,8 +27,9 @@ import torch
 
 from smd_tpu_torch.diffusion import schedules
 
-__all__ = ["SamplerOutput", "diffusion_dynamics", "ddim_dynamics",
-           "ddim_taus", "dpmpp_dynamics", "dpmpp_taus",
+__all__ = ["SamplerOutput", "annealed_langevin_dynamics",
+           "consistent_langevin_dynamics", "diffusion_dynamics",
+           "ddim_dynamics", "ddim_taus", "dpmpp_dynamics", "dpmpp_taus",
            "distilled_ddim_dynamics", "consistency_dynamics",
            "diffusion_stochastic_encoder", "collate_sampling_metrics"]
 
@@ -36,8 +39,8 @@ f32 = np.float32
 
 class SamplerOutput(NamedTuple):
     state: torch.Tensor
-    collection: Optional[torch.Tensor]   # (num_snapshots+1, *state.shape)
-    metrics: Optional[torch.Tensor]      # (4, steps, 1)
+    collection: Optional[torch.Tensor]   # (num_snapshots+1[, +1], *shape)
+    metrics: Optional[torch.Tensor]      # (4, num_sigmas or steps, T or 1)
 
 
 def _per_example_norm(x):
@@ -62,11 +65,13 @@ def _collection_slots(total_steps, collect_steps) -> dict:
     return slots
 
 
-def _init_collection(collect_steps, start):
+def _init_collection(collect_steps, start, extra_slots: int = 0):
+    """The snapshot buffer: ``start``, then ``collect_steps`` slots, then
+    ``extra_slots`` (the Langevin samplers' final denoise step)."""
     if collect_steps <= 0:
         return None
-    buf = torch.zeros((collect_steps + 1, *start.shape), dtype=start.dtype,
-                      device=start.device)
+    buf = torch.zeros((collect_steps + 1 + extra_slots, *start.shape),
+                      dtype=start.dtype, device=start.device)
     buf[0] = start
     return buf
 
@@ -117,6 +122,139 @@ def _levels(values, init, collect_metrics):
 
 def _stack_metrics(metrics):
     return torch.stack(metrics, dim=1)[:, :, None] if metrics else None
+
+
+def _langevin_chain(generator, model_fn, sigmas, init, epsilon, T,
+                    denoise, infill_samples, infill_masks, collect_steps,
+                    collect_metrics, noise, consistent):
+    """ALD (``consistent=False``: T steps at each of the L levels) or CAS
+    (one step a level), as the two JAX samplers compute them."""
+    sig = np.asarray(torch.as_tensor(sigmas, dtype=torch.float32).cpu())
+    L = sig.shape[0]
+    eps32 = f32(epsilon)
+    sig_last2 = sig[-1] * sig[-1]
+    # α = ε (σ/σ_L)² per level, and CAS's β, in float32 as JAX computes them.
+    alphas = eps32 * np.square(sig / sig[-1])
+    beta = np.sqrt(f32(1) - np.square(f32(1) - eps32 / sig_last2))
+    steps = L if consistent else L * T
+    infill_samples, infill_masks, keep = _resolve_infill(
+        init, infill_samples, infill_masks)
+    infill = infill_masks is not None
+    start = init * keep + infill_samples * infill_masks if infill else init
+    collect_steps = min(collect_steps, steps)
+    collection = _init_collection(collect_steps, start, int(denoise))
+    slots = _collection_slots(steps, collect_steps)
+    draw = _drawer(generator, init, noise)
+    # The model's sigma: a 0-d float32 tensor on the device, as JAX passes
+    # sigmas[i]; indexed, not copied from the host each step.
+    levels = torch.as_tensor(sig).to(init.device)
+    alpha_levels = _levels(alphas, init, collect_metrics)
+    zero_norm = None
+    metrics = []
+
+    state = start
+    for n in range(steps):
+        level = n if consistent else n // T
+        sigma, alpha = sig[level], float(alphas[level])
+        if infill:
+            y = infill_samples + float(sigma) * draw(1, n)
+        grad = model_fn(state, levels[level])
+        if consistent:
+            amp = beta * sig[level + 1] if level < L - 1 else None
+        else:
+            amp = np.sqrt(f32(2) * alphas[level])
+        next_state = state + alpha * grad
+        step_noise = None
+        if amp is not None:
+            step_noise = float(amp) * draw(0, n)
+            next_state = next_state + step_noise
+        if infill:
+            next_state = next_state * keep + y * infill_masks
+        slot = slots.get(n + 1) if collection is not None else None
+        if slot is not None:
+            collection[slot] = next_state
+        if collect_metrics:
+            if step_noise is None and zero_norm is None:
+                zero_norm = _per_example_norm(torch.zeros_like(state))
+            metrics.append(torch.stack([
+                _per_example_norm(grad), _per_example_norm(alpha * grad),
+                alpha_levels[level], zero_norm if step_noise is None
+                else _per_example_norm(step_noise)]))
+        state = next_state
+
+    if denoise:
+        state = state + float(sig_last2) * model_fn(state, levels[L - 1])
+        if collection is not None:
+            collection[-1] = state
+    if not metrics:
+        return SamplerOutput(state, collection, None)
+    stacked = torch.stack(metrics, dim=1)
+    stacked = stacked[:, :, None] if consistent else \
+        stacked.reshape(4, L, T)
+    return SamplerOutput(state, collection, stacked)
+
+
+def annealed_langevin_dynamics(generator: Optional[torch.Generator],
+                               model_fn: ModelFn,
+                               sigmas,
+                               init: torch.Tensor,
+                               epsilon: float,
+                               T: int,
+                               denoise: bool = True,
+                               infill_samples: Optional[torch.Tensor] = None,
+                               infill_masks: Optional[torch.Tensor] = None,
+                               collect_steps: int = 100,
+                               collect_metrics: bool = True,
+                               noise: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None
+                               ) -> SamplerOutput:
+    """Annealed Langevin dynamics (Song & Ermon).
+
+    T steps at each of the L noise levels, noisiest first: step size α =
+    ε·(σ/σ_L)²; x += α·s(x, σ) + sqrt(2α)·z; the infill overwrite
+    (samples + σ·z') each step; then, with ``denoise``, x += σ_L²·s(x,
+    σ_L) into the collection's extra last slot. The model gets σ as a 0-d
+    tensor. Metrics (4, L, T): |s|, |α s|, α, |noise| (per-example norms,
+    batch mean).
+
+    ``noise``: optional pre-drawn ``(step_noise, infill_noise)``, each
+    (L·T, *init.shape), indexed by step l·T + t; then ``generator`` is not
+    used. The JAX step splits its key into (carry, noise, infill) and draws
+    the infill noise, then the step noise.
+    """
+    return _langevin_chain(generator, model_fn, sigmas, init, epsilon, T,
+                           denoise, infill_samples, infill_masks,
+                           collect_steps, collect_metrics, noise,
+                           consistent=False)
+
+
+def consistent_langevin_dynamics(generator: Optional[torch.Generator],
+                                 model_fn: ModelFn,
+                                 sigmas,
+                                 init: torch.Tensor,
+                                 epsilon: float,
+                                 T: int = 1,
+                                 denoise: bool = True,
+                                 infill_samples: Optional[torch.Tensor] = None,
+                                 infill_masks: Optional[torch.Tensor] = None,
+                                 collect_steps: int = 100,
+                                 collect_metrics: bool = True,
+                                 noise: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None
+                                 ) -> SamplerOutput:
+    """Consistent annealed sampling (Jolicoeur-Martineau et al.).
+
+    One step a level (``T`` is taken and unused, as in JAX): x += α·s(x,
+    σ_i) + β·σ_{i+1}·z with β = sqrt(1 - (1 - ε/σ_L²)²) and no noise after
+    the last level; infill and the final denoise as ALD. Metrics (4, L, 1).
+    ``noise``: optional ``(step_noise, infill_noise)``, each (L,
+    *init.shape); the JAX step splits its key as ALD's.
+    """
+    del T
+    return _langevin_chain(generator, model_fn, sigmas, init, epsilon, 1,
+                           denoise, infill_samples, infill_masks,
+                           collect_steps, collect_metrics, noise,
+                           consistent=True)
 
 
 def diffusion_dynamics(generator: Optional[torch.Generator],

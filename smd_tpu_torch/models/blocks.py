@@ -57,7 +57,12 @@ def noise_encoding(noise: torch.Tensor, channels: int) -> torch.Tensor:
         noise = noise.squeeze(-1)
     if noise.dim() != 1:
         raise ValueError("noise_encoding takes (B,) or (B, 1)")
-    return sinusoidal_embedding(5000.0 * noise, channels)
+    # JAX casts the weakly typed 5000.0 to the noise's dtype before the
+    # product (bf16: 4992), where torch would keep the scalar in float32.
+    # Rounded on the host: a tensor made on the device would be a copy and
+    # a wait at every call.
+    scale = torch.tensor(5000.0, dtype=noise.dtype).item()
+    return sinusoidal_embedding(noise * scale, channels)
 
 
 def _swish(x):

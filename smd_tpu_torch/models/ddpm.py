@@ -13,6 +13,17 @@ dtype; parameters keep theirs, as in Flax. ``remat=True`` recomputes each
 transformer layer in the backward pass instead of keeping its activations.
 The models take ``(x, cond)`` with ``cond`` the noise level in any of the
 shapes (B,), (B,1), (B,1,1).
+
+Beside it the networks of single latents and the score networks:
+``DenseDDPM``/``ToyDDPM`` (an input Dense, ``num_layers`` FiLM-conditioned
+``DenseResBlock``s, LN, an output Dense), ``DenseNCSN``/``ToyNCSN`` (the
+same, conditioned on sigma, output divided by sigma) and ``ConvNCSN`` (a
+1-D convolutional network over sequences, output divided by sigma). None
+of them has a compute dtype: as in Flax, the input and output Dense, LN
+and convolutions compute in the promoted type of their input and params,
+while ``DenseFiLM`` and ``DenseResBlock`` keep their float32 default. So a
+bf16 call (bf16 params and input) runs the input Dense in bf16 and every
+resblock in float32 on params cast up.
 """
 from __future__ import annotations
 
@@ -23,13 +34,15 @@ from torch.utils.checkpoint import checkpoint
 from smd_tpu_torch.models.attention import MultiHeadSelfAttention
 from smd_tpu_torch.models.blocks import (DenseFiLM, DenseResBlock,
                                          FusedDenseResBlock,
-                                         QuantDenseResBlock,
+                                         QuantDenseResBlock, _swish,
                                          positional_encoding)
-from smd_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
+from smd_tpu_torch.models.layers import (Conv, Dense, GroupNorm, LayerNorm,
+                                         lecun_normal_)
 from smd_tpu_torch.ops import fused_attention as fat
 
 __all__ = ["TransformerEncoder", "TransformerLayer", "FusedTransformerLayer",
-           "TransformerDDPM", "TransformerDDPM4"]
+           "TransformerDDPM", "TransformerDDPM4", "DenseDDPM", "DenseNCSN",
+           "ConvResBlock1D", "ConvNCSN", "ToyDDPM", "ToyNCSN"]
 
 
 def _flat_cond(cond):
@@ -214,3 +227,125 @@ class TransformerDDPM(nn.Module):
 class TransformerDDPM4(TransformerDDPM):
     """Alias architecture named by ``configs/ddpm-multi-32seq-512.cfg:2``:
     TransformerDDPM under the config-supplied hyperparameters."""
+
+
+class _DenseNet(nn.Module):
+    """Input Dense, ``num_layers`` x (DenseFiLM -> DenseResBlock), LN,
+    output Dense: the trunk of DenseDDPM and DenseNCSN. ``num_heads`` and
+    ``num_mlp_layers`` are taken and unused, as the JAX fields are."""
+
+    def __init__(self, data_channels: int, num_layers: int = 3,
+                 mlp_dims: int = 2048, num_heads: int = 0,
+                 num_mlp_layers: int = 0):
+        super().__init__()
+        del num_heads, num_mlp_layers
+        self.Dense_0 = Dense(data_channels, mlp_dims)
+        self.block_names = []
+        for i in range(num_layers):
+            self.add_module(f"DenseFiLM_{i}", DenseFiLM(128, mlp_dims))
+            self.add_module(f"DenseResBlock_{i}",
+                            DenseResBlock(mlp_dims, mlp_dims))
+            self.block_names.append((f"DenseFiLM_{i}", f"DenseResBlock_{i}"))
+        self.LayerNorm_0 = LayerNorm(mlp_dims)
+        self.Dense_1 = Dense(mlp_dims, data_channels)
+
+    def trunk(self, inputs, cond):
+        x = self.Dense_0(inputs)
+        for film_name, block_name in self.block_names:
+            scale, shift = getattr(self, film_name)(cond)
+            x = getattr(self, block_name)(x, scale, shift)
+        return self.Dense_1(self.LayerNorm_0(x))
+
+
+class DenseDDPM(_DenseNet):
+    """Fully-connected epsilon-predictor for single latents."""
+
+    def forward(self, inputs, t):
+        return self.trunk(inputs, _flat_cond(t))
+
+
+class DenseNCSN(_DenseNet):
+    """Fully-connected score network, FiLM-conditioned on the noise level
+    sigma (a float, 0-d, (B,) or (B, 1, ...); rounded to the input's dtype
+    first, as JAX casts it); output divided by sigma."""
+
+    def forward(self, inputs, sigmas):
+        B = inputs.shape[0]
+        sig = torch.as_tensor(sigmas, dtype=inputs.dtype,
+                              device=inputs.device)
+        if sig.dim() <= 1:
+            sig = sig.reshape(-1, 1).expand(B, 1)
+        x = self.trunk(inputs, _flat_cond(sig.reshape(B, -1)[:, :1]))
+        return x / sig.reshape(B, *([1] * (inputs.dim() - 1)))
+
+
+class ConvResBlock1D(nn.Module):
+    """1-D convolutional residual block: conv(3) -> swish (the shortcut) ->
+    conv(3) -> GroupNorm(min(32, C)) -> affine -> swish, plus the
+    shortcut."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, out_channels, 3)
+        self.Conv_1 = Conv(out_channels, out_channels, 3)
+        self.GroupNorm_0 = GroupNorm(out_channels, min(32, out_channels))
+
+    def forward(self, inputs, scale=1.0, shift=0.0):
+        x = _swish(self.Conv_0(inputs))
+        shortcut = x
+        x = self.GroupNorm_0(self.Conv_1(x))
+        return _swish(scale * x + shift) + shortcut
+
+
+class ConvNCSN(nn.Module):
+    """Convolutional score network for sequences (B, L, C): conv(2) to 128
+    channels, resblocks of 128, 128, 256, 256, 256, 256, 128, 128 channels,
+    LN, relu, conv(2) back to C; output divided by sigma, which does not
+    condition it. The unused CLI kwargs are taken as the JAX fields are."""
+
+    CHANNELS = (128, 256, 256, 128)
+
+    def __init__(self, data_channels: int, num_layers: int = 0,
+                 num_heads: int = 0, num_mlp_layers: int = 0,
+                 mlp_dims: int = 0):
+        super().__init__()
+        del num_layers, num_heads, num_mlp_layers, mlp_dims
+        self.Conv_0 = Conv(data_channels, 128, 2)
+        widths = [128]
+        for channels in self.CHANNELS:
+            widths += [channels, channels]
+        self.block_names = []
+        for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
+            self.add_module(f"ConvResBlock1D_{i}", ConvResBlock1D(cin, cout))
+            self.block_names.append(f"ConvResBlock1D_{i}")
+        self.LayerNorm_0 = LayerNorm(128)
+        self.Conv_1 = Conv(128, data_channels, 2)
+
+    def forward(self, inputs, sigmas):
+        x = self.Conv_0(inputs)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = self.Conv_1(torch.relu(self.LayerNorm_0(x)))
+        sig = torch.as_tensor(sigmas, dtype=inputs.dtype,
+                              device=inputs.device)
+        ones = [1] * (inputs.dim() - 1)
+        sig = sig.reshape(sig.shape[0] if sig.dim() else 1, *ones)
+        return x / sig.expand(inputs.shape[0], *ones)
+
+
+class ToyDDPM(DenseDDPM):
+    """Small MLP DDPM for the 2-D toy mixture problem (configs/mixture)."""
+
+    def __init__(self, data_channels: int, num_layers: int = 3,
+                 mlp_dims: int = 256, num_heads: int = 0,
+                 num_mlp_layers: int = 0):
+        super().__init__(data_channels, num_layers, mlp_dims)
+
+
+class ToyNCSN(DenseNCSN):
+    """Small MLP NCSN for the 2-D toy mixture problem (configs/mixture)."""
+
+    def __init__(self, data_channels: int, num_layers: int = 3,
+                 mlp_dims: int = 256, num_heads: int = 0,
+                 num_mlp_layers: int = 0):
+        super().__init__(data_channels, num_layers, mlp_dims)

@@ -11,10 +11,14 @@ __all__ = ["MODEL_REGISTRY", "get_model"]
 MODEL_REGISTRY = {
     "TransformerDDPM": ddpm.TransformerDDPM,
     "TransformerDDPM4": ddpm.TransformerDDPM4,
+    "DenseDDPM": ddpm.DenseDDPM,
+    "DenseNCSN": ddpm.DenseNCSN,
+    "ConvNCSN": ddpm.ConvNCSN,
+    "ToyDDPM": ddpm.ToyDDPM,
+    "ToyNCSN": ddpm.ToyNCSN,
 }
 # Named by the JAX registry, not ported yet (ROADMAP.md, queue A).
-_NOT_PORTED = ("DenseDDPM", "DenseNCSN", "ConvNCSN", "ToyDDPM", "ToyNCSN",
-               "TransformerMDN")
+_NOT_PORTED = ("TransformerMDN",)
 
 
 def get_model(name: str, device=None, **kwargs):

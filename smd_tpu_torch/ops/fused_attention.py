@@ -25,11 +25,14 @@ first version, all float32. ``fused_ln_attention.launches`` counts both;
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from smd_tpu_torch.ops import _build
 
-__all__ = ["fused_ln_attention"]
+__all__ = ["fused_ln_attention", "tc_ulp_stats"]
 
 # Head widths the kernels are instantiated for (their per-thread registers).
 HEAD_DIMS = (8, 16, 32, 64)
@@ -75,6 +78,64 @@ def _reference(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, num_heads,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, S, E)
     return (o @ wout.float() + bout.float()).to(x.dtype)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _tc_emulation(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, num_heads,
+                  causal=False):
+    """Plain-PyTorch emulation of the tensor-core kernel's bf16 arithmetic
+    (``ln_attention_tc_kernel``; bf16 x and weights).
+
+    LN in float32, rounded to bf16; q, k, v = bf16(ln @ wqkv + bqkv) with
+    the products exact and the sums in float32 (in this device's order, not
+    the tensor cores'); scores q.k in float32; p = exp2(fma(s, c, -m2))
+    with c = log2(e)/sqrt(Dh) and m2 = c * the row's max, one rounding; l
+    sums the float32 p; p rounded once to bf16 for p.v; o = bf16(p.v / l);
+    y = o @ wout + bout in float32, stored in x's type. The kernel differs
+    from it only where the float32 summation order or ``exp2f`` flips a
+    rounding (``tc_ulp_stats``).
+    """
+    B, S, E = x.shape
+    Dh = E // num_heads
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    ln = ((xf - mean) * torch.rsqrt(var + 1e-6) * ln_scale.float() +
+          ln_bias.float()).bfloat16().float()
+    qkv = (ln @ wqkv.float() + bqkv.float()).bfloat16().float()
+    q, k, v = (t.reshape(B, S, num_heads, Dh).permute(0, 2, 1, 3)
+               for t in qkv.split(E, dim=-1))
+    s = q @ k.transpose(-1, -2)
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+        s = s.masked_fill(~keep, -math.inf)
+    c = float(np.float32(_LOG2E / math.sqrt(Dh)))
+    m2 = s.amax(-1, keepdim=True) * c
+    # fma(s, c, -m2) rounded once: the float64 product and difference of two
+    # float32 values is exact before the one rounding to float32.
+    p = torch.exp2((s.double() * c - m2.double()).float())
+    l = p.sum(-1, keepdim=True)
+    o = ((p.bfloat16().float() @ v) / l).bfloat16().float()
+    o = o.permute(0, 2, 1, 3).reshape(B, S, E)
+    return (o @ wout.float() + bout.float()).to(x.dtype)
+
+
+def _bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in the order of the reals, one step per ulp
+    (+0 and -0 both 0), as int32."""
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def tc_ulp_stats(out: torch.Tensor, emulated: torch.Tensor):
+    """(share of elements not bit-equal, mean signed difference in bf16
+    ulps) of the tensor-core kernel's bf16 ``out`` against
+    ``_tc_emulation``'s on the same inputs. Both are near 0 for a clean
+    kernel; a fault that moves every output one ulp reads (1, +-1)."""
+    diff = (_bf16_order(out) - _bf16_order(emulated)).double()
+    return float((diff != 0).double().mean()), float(diff.mean())
 
 
 def _launch(x, wqkv, bqkv, wout, bout, ln_scale, ln_bias, num_heads,

@@ -7,7 +7,9 @@
 Reads the JAX package's flags and flagfiles and ``--device`` (``cuda``
 unless ``--device=cpu``; no GPU is an error). Unconditional generation,
 ``--infill`` (the first and last 8 latents held) and ``--interpolate``,
-from the latest checkpoint (``ddpm``, ``ddim``, ``dpmpp``) or from a bundle
+from the latest checkpoint (``ald``, the default, and ``cas`` with
+``--ld_steps`` and ``--ld_epsilon`` on the sigma schedule; ``ddpm``,
+``ddim``, ``dpmpp`` on the betas) or from a bundle
 that ``python -m smd_tpu_torch.train_ncsn --distill`` wrote
 (``--sampling=distilled``: ``distilled/{ddim_steps}.pkl``;
 ``--sampling=consistency``: ``distilled/consistency.pkl`` with

@@ -1,10 +1,10 @@
 """Generation drivers: unconditional, infilling, interpolation (port of
 ``smd_tpu/sampling/generate.py``).
 
-``sample`` serves the DDPM, DDIM, DPM-Solver++, distilled and consistency
-samplers; the NCSN family's ``ald`` and ``cas`` raise and point at
-``ROADMAP.md``. Every driver takes a ``model_fn(x, cond)`` closure over a
-model, as the JAX ones do.
+``sample`` serves the NCSN family's annealed and consistent Langevin
+samplers (``ald``, the default, and ``cas``) and the DDPM, DDIM,
+DPM-Solver++, distilled and consistency samplers. Every driver takes a
+``model_fn(x, cond)`` closure over a model, as the JAX ones do.
 """
 from __future__ import annotations
 
@@ -20,8 +20,6 @@ __all__ = ["sample", "make_init", "SAMPLERS", "infill_edge_mask",
            "interpolation_endpoints", "interpolate"]
 
 SAMPLERS = ("ald", "cas", "ddpm", "ddim", "dpmpp", "distilled", "consistency")
-# The NCSN family's samplers, still to port.
-_NOT_PORTED = ("ald", "cas")
 
 
 def make_init(generator: Optional[torch.Generator], num_samples: int,
@@ -60,23 +58,19 @@ def sample(model_fn,
 
     The JAX package's signature, parameters and defaults in its order, then
     ``device``: ``cuda`` unless the caller passes ``"cpu"``. ``sigmas`` are
-    the DDPM betas for the diffusion samplers. ``generator`` (on ``device``)
-    draws the initial state, then the sampler's noise. ``ddim_steps`` is
-    DDIM's and DPM++'s step budget and the consistency sampler's k;
+    the noise levels for ``ald`` and ``cas`` and the DDPM betas for the
+    diffusion samplers. ``generator`` (on ``device``) draws the initial
+    state, then the sampler's noise. ``epsilon``, ``steps`` (ALD's steps
+    a level) and ``denoise`` belong to ``ald`` and ``cas``. ``ddim_steps``
+    is DDIM's and DPM++'s step budget and the consistency sampler's k;
     ``distill_grid`` is the bundle's grid for ``distilled`` and
     ``consistency``. ``ensure_snapshots`` opts DPM++, collection-free by
-    default, into a DDIM-sized collection. ``epsilon``, ``steps`` and
-    ``denoise`` belong to the NCSN samplers (``ald``, the default, and
-    ``cas``), not ported yet: they raise.
+    default, into a DDIM-sized collection.
 
     Returns (generated, collection, metrics), the JAX package's 3-tuple.
     """
     if sampling not in SAMPLERS:
         raise ValueError(f"Unknown sampling algorithm: {sampling}")
-    if sampling in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sampling={sampling!r} (the NCSN family) is not ported to "
-            "smd_tpu_torch yet: see ROADMAP.md, queue A, item 8")
     if sampling in ("distilled", "consistency") and distill_grid is None:
         raise ValueError(f"sampling={sampling!r} needs the bundle's grid "
                          "(see training.distill / training.consistency)")
@@ -107,13 +101,20 @@ def sample(model_fn,
         out = samplers.consistency_dynamics(generator, model_fn,
                                             distill_grid, init,
                                             num_steps=ddim_steps, **infill)
-    else:   # dpmpp: snapshots off unless asked for
+    elif sampling == "dpmpp":   # snapshots off unless asked for
         if collect_steps is None:
             collect_steps = 40 if ensure_snapshots else 0
         out = samplers.dpmpp_dynamics(
             generator, model_fn, sigmas, init, num_steps=ddim_steps,
             **infill, collect_steps=collect_steps,
             collect_metrics=collect_metrics)
+    else:   # ald, cas
+        fn = samplers.annealed_langevin_dynamics if sampling == "ald" \
+            else samplers.consistent_langevin_dynamics
+        out = fn(generator, model_fn, sigmas, init, epsilon, steps,
+                 denoise=denoise, **infill,
+                 collect_steps=100 if collect_steps is None
+                 else collect_steps, collect_metrics=collect_metrics)
     return out.state, out.collection, out.metrics
 
 

@@ -5,11 +5,14 @@
 
 Reads the same layered ``configs/*.cfg`` flagfiles as the JAX package's
 ``train_ncsn.py``, and ``--device`` (``cuda`` unless ``--device=cpu``; no
-GPU is an error). The DDPM objective trains; ``--distill`` distills the
-latest checkpoint for few-step sampling (``--distill_mode=progressive``,
-``consistency`` or ``ct``) into ``MODEL_DIR/distilled/`` bundles, which
-``python -m smd_tpu_torch.sample_ncsn`` serves. The score-matching
-objectives and ``--snapshot_sampling`` are not ported yet and raise.
+GPU is an error). Every architecture but ``TransformerMDN`` trains, on
+the DDPM objective (``--loss=ddpm``) or on denoising or sliced score
+matching (``dsm``, ``ssm``) for the NCSN family; ``--distill`` distills
+the latest DDPM checkpoint for few-step sampling
+(``--distill_mode=progressive``, ``consistency`` or ``ct``) into
+``MODEL_DIR/distilled/`` bundles, which ``python -m
+smd_tpu_torch.sample_ncsn`` serves. ``--snapshot_sampling`` is not ported
+yet and raises.
 """
 from __future__ import annotations
 

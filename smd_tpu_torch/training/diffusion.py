@@ -23,16 +23,14 @@ from smd_tpu_torch.utils import logging as log_lib
 __all__ = ["TrainConfig", "objective_by_name", "create_train_state",
            "make_train_step", "make_eval_step", "evaluate", "fit"]
 
-OBJECTIVES = {"ddpm": losses_lib.diffusion_loss}
-# Named by the JAX package, still to port (the NCSN family).
-_NOT_PORTED = ("dsm", "ssm")
+OBJECTIVES = {
+    "dsm": losses_lib.denoising_score_matching_loss,
+    "ssm": losses_lib.sliced_score_matching_loss,
+    "ddpm": losses_lib.diffusion_loss,
+}
 
 
 def objective_by_name(name: str) -> Callable:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name} objective belongs to the NCSN family, not ported to "
-            "smd_tpu_torch yet: see ROADMAP.md, queue A")
     if name not in OBJECTIVES:
         raise ValueError(f"Unsupported objective {name}")
     return OBJECTIVES[name]
@@ -89,32 +87,53 @@ def create_train_state(model, config: TrainConfig, seed: int = 0,
                              ema_mu=config.mu)
 
 
-def make_train_step(objective, betas, continuous_noise: bool):
+def _schedule(objective, sigmas):
+    """``on(device) -> (sigmas, kwargs)``: the schedule as a float32 tensor
+    and what the objective takes beside it (the DDPM loss's padded ᾱ
+    table), copied to each device once, not at every step."""
+    kwargs = {}
+    if objective is losses_lib.diffusion_loss:
+        kwargs["alphas_prod"] = losses_lib.padded_alphas_prod(sigmas)
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32)
+    cache = {}
+
+    def on(device):
+        if device not in cache:
+            cache[device] = (sigmas.to(device),
+                             {k: v.to(device) for k, v in kwargs.items()})
+        return cache[device]
+
+    return on
+
+
+def make_train_step(objective, sigmas, continuous_noise: bool):
     """``train_step(state, batch, draws=None) -> (state, metrics)``.
 
-    The schedule's padded ᾱ table is made once here. ``draws`` replays
-    pre-drawn ``(labels, u, eps)`` (see ``losses.diffusion_loss``); without
-    it the step draws from ``state.generator``.
+    ``sigmas`` is the schedule: the betas for ``ddpm``, the noise levels for
+    ``dsm`` and ``ssm``. ``draws`` replays pre-drawn draws (see each
+    objective in ``diffusion/losses.py``); without it the step draws from
+    ``state.generator``.
     """
-    alphas_prod = losses_lib.padded_alphas_prod(betas)
+    schedule = _schedule(objective, sigmas)
 
     def train_step(state: TrainState, batch, draws=None):
-        loss = objective(batch, state.model, betas, state.generator,
-                         continuous_noise, "mean", alphas_prod=alphas_prod,
-                         draws=draws)
+        sig, kwargs = schedule(batch.device)
+        loss = objective(batch, state.model, sig, state.generator,
+                         continuous_noise, "mean", draws=draws, **kwargs)
         return state, state.descend(loss)
 
     return train_step
 
 
-def make_eval_step(objective, betas, continuous_noise: bool):
+def make_eval_step(objective, sigmas, continuous_noise: bool):
     """``eval_step(model, batch, generator) -> summed loss``."""
-    alphas_prod = losses_lib.padded_alphas_prod(betas)
+    schedule = _schedule(objective, sigmas)
 
     @torch.no_grad()
     def eval_step(model, batch, generator=None, draws=None):
-        return objective(batch, model, betas, generator, continuous_noise,
-                         "sum", alphas_prod=alphas_prod, draws=draws)
+        sig, kwargs = schedule(batch.device)
+        return objective(batch, model, sig, generator, continuous_noise,
+                         "sum", draws=draws, **kwargs)
 
     return eval_step
 
@@ -137,7 +156,8 @@ def fit(model,
     Args:
         model: the port's module with ``(x, cond)`` signature, on the device
             to train on; its params are drawn anew from ``seed``.
-        sigmas: noise schedule (the DDPM betas).
+        sigmas: noise schedule (the DDPM betas, or the sigmas of dsm and
+            ssm).
         train_data/eval_data: zero-arg callables returning a fresh iterable
             of numpy batches per epoch.
         input_shape: per-example shape, e.g. (32, 42); the JAX signature's,

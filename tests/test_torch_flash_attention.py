@@ -378,8 +378,12 @@ def test_sample_signature_matches_jax():
         for p in theirs]
     assert (ours[-1].name, ours[-1].default, ours[-1].kind) == \
         ("device", None, inspect.Parameter.KEYWORD_ONLY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate.sample(None, None, None, (S, C), device="cpu")  # "ald"
+    # The default, "ald", runs.
+    sigmas = schedules.noise_schedule(1.0, 0.01, 3, "geometric")
+    state, _, _ = generate.sample(lambda x, s: -x / s ** 2, sigmas,
+                                  torch.Generator().manual_seed(0), (S, C),
+                                  num_samples=2, steps=2, device="cpu")
+    assert state.shape == (2, S, C) and torch.isfinite(state).all()
 
 
 # -- the CUDA kernel's bf16 arithmetic, emulated ------------------------------

@@ -5,6 +5,9 @@ in Pallas interpret mode, as ``tests/test_fused_attention.py`` runs it. The
 CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``.
 """
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,42 +70,11 @@ def test_cpu_wrapper_counts_no_launch():
 
 
 # -- the CUDA kernel's bf16 arithmetic, emulated ------------------------------
+# ``fused_attention._tc_emulation`` rounds the LN rows, q, k, v, p and o to
+# bf16 where the tensor-core kernel does; chip_smoke.py holds the kernel to
+# it on the card by ``tc_ulp_stats``.
 
-_LOG2E = 1.4426950408889634
-
-
-def _emulate_bf16_kernel(x, wqkv, bqkv, wout, bout, lns, lnb, H, causal):
-    """Plain-PyTorch emulation of ``csrc/fused_attention.cu``'s bf16
-    tensor-core path (bf16 x and weights).
-
-    LN in float32, rounded to bf16; q, k, v = bf16(ln @ wqkv + bqkv) with
-    the products exact and the sums in float32 (in the CPU's order, not the
-    tensor cores'); scores q.k in float32; p = exp2(fma(s, c, -m2)) with
-    c = log2(e)/sqrt(Dh) and m2 = c * the row's max, one rounding; l sums
-    the float32 p; p rounded once to bf16 for p.v; o = bf16(p.v / l);
-    y = o @ wout + bout in float32, stored in x's type.
-    """
-    B, S, E = x.shape
-    Dh = E // H
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    ln = ((xf - mean) * torch.rsqrt(var + 1e-6) * lns.float() +
-          lnb.float()).bfloat16().float()
-    qkv = (ln @ wqkv.float() + bqkv.float()).bfloat16().float()
-    q, k, v = (t.reshape(B, S, H, Dh).permute(0, 2, 1, 3)
-               for t in qkv.split(E, dim=-1))
-    s = q @ k.transpose(-1, -2)
-    if causal:
-        keep = torch.ones((S, S), dtype=torch.bool).tril()
-        s = s.masked_fill(~keep, -np.inf)
-    c = np.float32(_LOG2E / np.sqrt(Dh))
-    m2 = s.amax(-1, keepdim=True) * c
-    p = torch.exp2((s.double() * float(c) - m2.double()).float())
-    l = p.sum(-1, keepdim=True)
-    o = ((p.bfloat16().float() @ v) / l).bfloat16().float()
-    o = o.permute(0, 2, 1, 3).reshape(B, S, E)
-    return (o @ wout.float() + bout.float()).to(x.dtype)
+_emulate_bf16_kernel = fat._tc_emulation
 
 
 def _bf16_inputs(B, S, E, seed):
@@ -155,3 +127,39 @@ def test_tensor_core_route(x_dtype, w_dtype, S, E, tc):
     """Which of the two CUDA kernels a call takes (decided before any
     launch, so it is checked here)."""
     assert fat.tensor_core_route(x_dtype, w_dtype, S, E) is tc
+
+
+def _chip_smoke():
+    root = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def test_one_ulp_fault_fails_the_emulation_statistics():
+    """chip_smoke.py holds the card kernel to ``_tc_emulation`` by
+    ``tc_ulp_stats`` at its limits: the emulation itself reads (0, 0), a
+    fault of one bf16 ulp in every output (1, +-1), beyond them; so does a
+    one-ulp fault in one output of ten, by its share."""
+    cs = _chip_smoke()
+
+    def within(stats):
+        return stats[0] <= cs.ATTN_EMU_MAX_SHARE and \
+            abs(stats[1]) <= cs.ATTN_EMU_MAX_MEAN_ULP
+
+    args = _bf16_inputs(8, 32, 128, seed=3)
+    emu = fat._tc_emulation(*args, 8, False)
+    assert emu.dtype == torch.bfloat16
+    assert fat.tc_ulp_stats(emu, emu) == (0.0, 0.0)
+    for direction, sign in ((float("inf"), 1.0), (-float("inf"), -1.0)):
+        moved = torch.nextafter(emu, torch.full_like(emu, direction))
+        assert fat.tc_ulp_stats(moved, emu) == (1.0, sign)
+        assert not within(fat.tc_ulp_stats(moved, emu))
+    some = emu.clone().flatten()
+    some[::10] = torch.nextafter(some[::10],
+                                 torch.full_like(some[::10], float("inf")))
+    share, mean = fat.tc_ulp_stats(some.reshape(emu.shape), emu)
+    assert abs(share - 0.1) < 1e-3 and not within((share, mean))

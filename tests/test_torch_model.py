@@ -164,7 +164,7 @@ def test_unported_options_raise():
         get_model("TransformerDDPM", device="cpu", data_channels=C,
                   fused_head=True, quantized_head=True, **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("DenseDDPM", device="cpu")
+        get_model("TransformerMDN", device="cpu")
     with pytest.raises(ValueError):
         get_model("NoSuchModel", device="cpu")
 

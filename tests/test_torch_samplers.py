@@ -16,6 +16,7 @@ from smd_tpu.diffusion import samplers as jax_samplers
 from smd_tpu.diffusion import schedules as jax_schedules
 from smd_tpu.models import get_model as jax_get_model
 from smd_tpu.models.fuse import fuse_attention_params, fuse_head_params
+from smd_tpu.sampling import generate as jax_generate
 from smd_tpu_torch.diffusion import samplers, schedules
 from smd_tpu_torch.models import get_model
 from smd_tpu_torch.sampling import generate
@@ -126,11 +127,10 @@ def test_generate_sample_ddpm_on_cpu():
 
 
 def test_unported_samplers_raise():
-    """The NCSN family's samplers (``ald``, the default, and ``cas``)."""
-    for sampling in ("ald", "cas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            generate.sample(None, None, None, (S, C), sampling=sampling,
-                            device="cpu")
+    """Every sampler the JAX package names is ported (the NCSN family's
+    ``ald``, the default, and ``cas`` run in tests/test_torch_langevin.py);
+    an unknown one raises."""
+    assert set(generate.SAMPLERS) == set(jax_generate.SAMPLERS)
     with pytest.raises(ValueError):
         generate.sample(None, None, None, (S, C), sampling="nope",
                         device="cpu")

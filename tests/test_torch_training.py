@@ -476,9 +476,13 @@ def test_scan_chunk_fit_boundaries(tmp_path, scan_chunk):
 
 
 def test_unported_objectives_raise():
-    for name in ("dsm", "ssm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.objective_by_name(name)
+    """Every objective the JAX package names is ported (dsm and ssm held
+    against it in tests/test_torch_score_matching.py); an unknown one
+    raises."""
+    assert trainer.objective_by_name("dsm") is \
+        losses.denoising_score_matching_loss
+    assert trainer.objective_by_name("ssm") is \
+        losses.sliced_score_matching_loss
     with pytest.raises(ValueError):
         trainer.objective_by_name("nope")
     assert trainer.objective_by_name("ddpm") is losses.diffusion_loss
