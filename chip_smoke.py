@@ -22,8 +22,9 @@ Phases, one flushed line each with its seconds:
    flash, the tensor-core attention, the w8a8 product and its quantize
    pass), and any spill or serialized wgmma in any kernel.
 3. kernels: each kernel at the sampler's shapes (B=1000, or for flash
-   attention B=64 and B=16 at S=512, B=32 at S=1024, causal, and the packed
-   B=1000 S=32 call) against its plain PyTorch version, plus small float32
+   attention B=64 and B=16 at S=512, B=32 at S=1024, causal, the packed
+   B=1000 S=32 call, and float32 at B=64 and causal at the MDN's B=16
+   S=512) against its plain PyTorch version, plus small float32
    cases; times the kernel, the plain version and a one-call PyTorch
    yardstick per eager call between CUDA events (the records' times), and
    the kernel and the yardstick also as calls captured in a CUDA graph and
@@ -119,6 +120,27 @@ Phases, one flushed line each with its seconds:
     and ``mixture-single-ddpm-2.cfg`` (ToyDDPM) trained 20 steps each on
     the 2-D mixture. No kernel launches in phases 18-20: these networks
     run the plain ``DenseResBlock``, as the JAX package's do.
+
+21. MDN: ``python -m smd_tpu_torch.train_mdn``'s ``main`` with
+    ``configs/mdn-mel-32seq-512.cfg`` (TransformerMDN: 6 causal layers, 8
+    heads, 2 x 2048 resblocks, 100 mixtures, batch 128, float32) on seeded
+    32x512 latents (1,280 train, 1,024 eval) with the flagship's slice:
+    60 steps with evaluations and checkpoints at 30 and 60, every loss
+    finite, the last 10 steps' mean below the first step's; resumed to 70,
+    which must start at step 60; then ``sample_mdn``'s ``main`` on 1000
+    requests, KV-cached (flushing ``mdn/{real,generated}.pkl``) and
+    ``--nocached_decode``, with ``--nll_gate=warn``: both gate readings
+    printed, the samples finite and (1000, 32, 42), each decode timed
+    between two synchronizes. S=32 takes the einsum: no launches.
+22. MDN at 512 positions: the same width built directly (weights from a
+    seed, ``max_decode_length=512``) on 16 x 512x42: one teacher-forced
+    float32 call through the causal flash kernel against the plain
+    version (the flash count rising by 6), the same at bf16 compute (trunk
+    and resblock params in bf16, the head in float32); one NLL gradient
+    through the kernel against the plain version, every parameter
+    present; a few float32 optimizer steps; ``ar_decode`` at bf16 (512
+    full forwards: 512 x 6 flash launches) and ``ar_decode_cached`` (no
+    launch).
 
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
@@ -714,7 +736,9 @@ def _flash_kernel_checks(gen):
             (32, 1024, False, torch.bfloat16, False),
             (64, LONG_SEQ_LEN, True, torch.bfloat16, False),
             (BENCH_BATCH, SEQ_LEN, False, torch.bfloat16, True),
-            (64, LONG_SEQ_LEN, False, torch.float32, False)):
+            (64, LONG_SEQ_LEN, False, torch.float32, False),
+            # The MDN's float32 causal call (phase 22).
+            (MDN_LONG_BATCH, LONG_SEQ_LEN, True, torch.float32, False)):
         q, k, v = torch.randn(B, S, 3, H, Dh, generator=gen,
                               device="cuda").to(dtype).unbind(dim=2)
         if packed:   # (B/G, G*S, H, Dh) with block_diag=S
@@ -987,7 +1011,7 @@ def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
     return counts
 
 
-def _write_latents(root):
+def _write_latents(root, train=TRAIN_EXAMPLES, eval_=EVAL_EXAMPLES):
     """Seeded latents of 32x512 as TFRecords, through the port's writer: each
     dimension a smooth AR(1) walk along the 32 steps with its own scale; and
     the flagship's slice as a pickle."""
@@ -995,7 +1019,7 @@ def _write_latents(root):
     rng = np.random.default_rng(0)
     steps, dims = LATENT_SHAPE
     scale = rng.uniform(0.2, 2.0, dims).astype(np.float32)
-    for split, n in (("train", TRAIN_EXAMPLES), ("eval", EVAL_EXAMPLES)):
+    for split, n in (("train", train), ("eval", eval_)):
         z = np.empty((n, steps, dims), np.float32)
         z[:, 0] = rng.normal(size=(n, dims))
         for t in range(1, steps):
@@ -1749,30 +1773,39 @@ def _vs_cpu(what, model, args, grads=False):
     return rel, float((out - ref).abs().max()), worst, worst_name
 
 
+@contextlib.contextmanager
+def _timed(module, name, seconds):
+    """Replace ``module.name`` with a wrapper that appends the seconds of
+    each call, between two synchronizes, to ``seconds``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def _serve_cli(argv, what, smi, shape, calls):
     """``sample_ncsn.main`` on ``argv`` (no flush), timed whole and in its
     ``generate.sample`` call alone (between two synchronizes); fails unless
     the samples are finite, of ``shape``, and no kernel launched."""
     from smd_tpu_torch import sample_ncsn
     from smd_tpu_torch.sampling import generate
-    sample, chain = generate.sample, []
-
-    def timed(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sample(*args, **kwargs)
-        torch.cuda.synchronize()
-        chain.append(time.perf_counter() - t0)
-        return out
-
+    chain = []
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
-    generate.sample = timed
-    try:
+    with _timed(generate, "sample", chain):
         gen, _ = sample_ncsn.main(["sample_ncsn", *argv, "--noflush"])
-    finally:
-        generate.sample = sample
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     if _counts() != per_call_launches("standard"):
@@ -1900,6 +1933,254 @@ def phase_conv_toy(tmp, smi):
             f"{smi}")
 
 
+# The autoregressive MDN (phases 21-22): configs/mdn-mel-32seq-512.cfg.
+MDN_FLAGFILE = "configs/mdn-mel-32seq-512.cfg"
+MDN_WIDTH = dict(num_layers=6, num_heads=8, num_mlp_layers=2, mlp_dims=2048,
+                 mdn_mixtures=100)
+MDN_TRAIN, MDN_EVAL = 1280, 1024       # sample_mdn takes 1000 eval examples
+MDN_STEPS, MDN_RESUME, MDN_SERVE = 60, 70, 1000
+MDN_LONG_BATCH, MDN_OPT_STEPS = 16, 5
+# The MDN at S=512 through the flash kernel against its plain version, in
+# norm (each output, each parameter's gradient): float32 flash calls are
+# within 1e-5 of the plain version, carried through 6 layers and the head,
+# as CPU_RTOL holds float32 networks to the CPU; bf16 compute as phase 4's
+# flagship check, 5e-2 of the largest output (one bf16 ulp of an attention
+# output carried through the layers).
+MDN_F32_RTOL, MDN_BF16_RTOL = 1e-4, 5e-2
+
+
+def _no_launches(what):
+    torch.cuda.synchronize()
+    if _counts() != (0, 0, 0, 0):
+        fail(f"{what} launched (attention, film, w8a8, flash) {_counts()}, "
+             "expected none at S=32")
+
+
+def phase_mdn(tmp, smi):
+    """The MDN flagfile trained, checkpointed, resumed and served through
+    the two entry points."""
+    from smd_tpu_torch import cli, sample_mdn, train_mdn
+    from smd_tpu_torch.sampling import mdn_decode
+    data = f"{tmp}/mdn_data"
+    _write_latents(data, MDN_TRAIN, MDN_EVAL)
+    base = [f"--flagfile={MDN_FLAGFILE}", f"--dataset={data}",
+            f"--slice_ckpt={data}/slice.pkl", f"--model_dir={tmp}/mdn",
+            f"--snapshot_freq={MDN_STEPS // 2}", "--logging_freq=10"]
+    steps = StepLog(window=(10, MDN_STEPS))
+    _reset_counts()
+    state = train_mdn.main(["train_mdn", *base, f"--max_steps={MDN_STEPS}"],
+                           step_callback=steps)
+    _no_launches("training the MDN")
+    losses = torch.stack(steps.losses).float().cpu()
+    if not torch.isfinite(losses).all() or len(losses) != MDN_STEPS:
+        fail(f"MDN training: {len(losses)} steps, losses {losses.tolist()}")
+    first, tail = _falls("TransformerMDN", losses)
+    ckpts = sorted(os.listdir(f"{tmp}/mdn/ckpt"))
+    if f"{MDN_STEPS}.pt" not in ckpts or state.ema_params is not None:
+        fail(f"MDN checkpoints {ckpts}, EMA {state.ema_params is not None}")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    say(f"trained float32 {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} "
+        f"layers, {cli.FLAGS.num_heads} heads, {cli.FLAGS.num_mlp_layers} x "
+        f"{cli.FLAGS.mlp_dims} resblocks, {cli.FLAGS.mdn_components} "
+        f"mixtures, {n_params / 1e6:.2f} M params, batch "
+        f"{cli.FLAGS.batch_size}): {MDN_STEPS} steps, NLL first {first:.4f},"
+        f" mean of the last 10 {tail:.4f}; {steps.ms_per_step():.3f} ms/step "
+        f"(wall, steps 10-{MDN_STEPS}, data input included) on {smi}; "
+        f"checkpoints {ckpts}")
+    resumed = StepLog()
+    state = train_mdn.main(["train_mdn", *base, f"--max_steps={MDN_RESUME}"],
+                           step_callback=resumed)
+    if resumed.steps[0] != MDN_STEPS + 1 or state.step != MDN_RESUME:
+        fail(f"the resumed MDN run took steps {resumed.steps[0]}.."
+             f"{state.step}, expected {MDN_STEPS + 1}..{MDN_RESUME}")
+    say(f"resumed the MDN from step {resumed.steps[0] - 1} to {state.step}")
+    del state
+
+    serve = ["sample_mdn", *base, f"--sample_size={MDN_SERVE}",
+             f"--sampling_dir={tmp}/mdn_samples", "--nll_gate=warn"]
+    for name, extra in (("ar_decode_cached", []),
+                        ("ar_decode", ["--nocached_decode", "--noflush"])):
+        seconds = []
+        _reset_counts()
+        with _timed(mdn_decode, name, seconds):
+            gen, gates = sample_mdn.main([*serve, *extra])
+        _no_launches(f"sample_mdn {name}")
+        if gen.shape != (MDN_SERVE, SEQ_LEN, CHANNELS) or \
+                not np.isfinite(gen).all():
+            fail(f"sample_mdn {name}: samples {gen.shape}, expected "
+                 f"{(MDN_SERVE, SEQ_LEN, CHANNELS)} and finite")
+        say(f"sample_mdn {name}: {MDN_SERVE} requests of {SEQ_LEN}x"
+            f"{CHANNELS} decoded in {seconds[0]:.3f} s = "
+            f"{MDN_SERVE / seconds[0]:.1f} seqs/s on {smi}; gate: held-out "
+            f"NLL {gates['heldout_nll']:.3f} against the Gaussian baseline "
+            f"{gates['gaussian_nll']:.3f} (margin "
+            f"{cli.FLAGS.nll_gate_margin}), marginal deviation "
+            f"{gates['marginal_deviation']:.3f} (limit "
+            f"{cli.FLAGS.gate_dev_max}); samples in [{float(gen.min()):.3f},"
+            f" {float(gen.max()):.3f}]")
+    flushed = sorted(os.listdir(f"{tmp}/mdn_samples/mdn"))
+    if flushed != ["generated.pkl", "real.pkl"]:
+        fail(f"sample_mdn flushed {flushed}")
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30))
+
+
+def _mdn_long_call(model, x, what, rtol, by_max=False):
+    """One teacher-forced call through the kernel (6 flash launches)
+    against the same call through the plain version. The plain version is
+    causal, as each layer is, so a launch that was not would fail here."""
+    with torch.no_grad():
+        _reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        if _counts() != (0, 0, 0, MDN_WIDTH["num_layers"]):
+            fail(f"{what}: launched {_counts()}, expected "
+                 f"{MDN_WIDTH['num_layers']} flash")
+        ref = model_fn_plain(model, model, x)
+    errs = []
+    for o, r in zip(out, ref):
+        if not torch.isfinite(o).all() or o.dtype != torch.float32:
+            fail(f"{what}: output non-finite or {o.dtype}")
+        errs.append(float((o - r).abs().max() / r.abs().max()) if by_max
+                    else _rel(o, r))
+    if max(errs) > rtol:
+        fail(f"{what}: kernel vs plain (pi, mu, log_sigma) {errs}, limit "
+             f"{rtol}")
+    return errs
+
+
+def _mdn(max_decode_length):
+    """The MDN flagfile's TransformerMDN, float32, with weights from a seed
+    in the Flax layout carried in by the converter."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerMDN", device="cuda", data_channels=CHANNELS,
+                      max_decode_length=max_decode_length, **MDN_WIDTH)
+    return load_flax_params(model, random_flax_params(model, seed=0))
+
+
+def phase_mdn_long(smi):
+    """The MDN's width on 512 positions, through the causal flash kernel."""
+    import copy
+
+    from smd_tpu_torch.diffusion.losses import mdn_nll
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.sampling import mdn_decode
+    from smd_tpu_torch.training import mdn as trainer
+    model = _mdn(LONG_SEQ_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (MDN_LONG_BATCH, LONG_SEQ_LEN, CHANNELS)
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    layers = MDN_WIDTH["num_layers"]
+    errs = _mdn_long_call(model, x, "MDN float32 at S=512", MDN_F32_RTOL)
+    say(f"MDN float32 call on {MDN_LONG_BATCH}x{LONG_SEQ_LEN}x{CHANNELS}: "
+        f"{layers} causal flash launches; kernel vs plain (pi, mu, "
+        f"log_sigma) {', '.join(f'{e:.2e}' for e in errs)} of the norm "
+        f"(limit {MDN_F32_RTOL})")
+    bf16 = get_model("TransformerMDN", device="cuda", data_channels=CHANNELS,
+                     dtype=torch.bfloat16, max_decode_length=LONG_SEQ_LEN,
+                     **MDN_WIDTH)
+    bf16.load_state_dict(model.state_dict())
+    bf16.to(torch.bfloat16).mdn.float()
+    errs = _mdn_long_call(bf16, x, "MDN bf16 at S=512", MDN_BF16_RTOL,
+                          by_max=True)
+    say(f"MDN bf16 call (bf16 trunk and resblocks, float32 head): {layers} "
+        f"causal flash launches; kernel vs plain max|err| / max|ref| "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (limit {MDN_BF16_RTOL})")
+
+    params = dict(model.named_parameters())
+
+    def grads(plain):
+        model.use_plain_ops(plain)
+        try:
+            loss = mdn_nll(*model(x), x)
+            return loss, torch.autograd.grad(loss, list(params.values()),
+                                             allow_unused=True)
+        finally:
+            model.use_plain_ops(False)
+
+    _reset_counts()
+    loss_k, g_k = grads(False)
+    torch.cuda.synchronize()
+    if _counts() != (0, 0, 0, layers):
+        fail(f"an MDN NLL gradient launched {_counts()}, expected {layers} "
+             "flash")
+    loss_p, g_p = grads(True)
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(params, g_k, g_p):
+        if a is None or b is None or not (torch.isfinite(a).all() and
+                                          torch.isfinite(b).all()):
+            fail(f"{name}: no finite gradient through the "
+                 f"{'kernel' if a is None else 'plain version'}")
+        if _rel(a, b) > worst:
+            worst, worst_name = _rel(a, b), name
+    if worst > MDN_F32_RTOL:
+        fail(f"the MDN NLL gradient of {worst_name} differs from the plain "
+             f"version's by {worst:.3e} of its norm (limit {MDN_F32_RTOL})")
+    say(f"MDN float32 NLL gradient at S=512: NLL {loss_k.item():.4f} through "
+        f"the kernel, {loss_p.item():.4f} plain; all {len(params)} "
+        f"parameters have a finite gradient; worst {worst:.3e} of the norm "
+        f"({worst_name}; limit {MDN_F32_RTOL})")
+
+    state = trainer.create_train_state(copy.deepcopy(model), trainer.TrainConfig(
+        learning_rate=3e-4), init=False)
+    train_step = trainer.make_train_step()
+    train_step(state, x)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [train_step(state, x)[1]["loss"] for _ in range(MDN_OPT_STEPS)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MDN_OPT_STEPS
+    trained = _counts()
+    losses = torch.stack(losses).cpu()
+    if trained != (0, 0, 0, layers * MDN_OPT_STEPS) or \
+            not torch.isfinite(losses).all():
+        fail(f"{MDN_OPT_STEPS} MDN steps at S=512 launched {trained}, "
+             f"losses {losses.tolist()}")
+    say(f"MDN float32 train steps at {MDN_LONG_BATCH}x{LONG_SEQ_LEN}: "
+        f"{ms:.3f} ms/step (wall, {MDN_OPT_STEPS} steps after 1), NLL "
+        f"{float(losses[0]):.4f} .. {float(losses[-1]):.4f}, launches "
+        f"{trained}, on {smi}")
+    del state
+
+    served = [trained]
+    for name in ("ar_decode", "ar_decode_cached"):
+        g = torch.Generator(device="cuda").manual_seed(14)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "ar_decode":
+            out = mdn_decode.ar_decode(
+                g, lambda t: bf16(t, shift=False), MDN_LONG_BATCH,
+                steps=LONG_SEQ_LEN, channels=CHANNELS, log_sigma_cap=0.0,
+                device="cuda")
+        else:
+            out = mdn_decode.ar_decode_cached(
+                g, bf16, MDN_LONG_BATCH, steps=LONG_SEQ_LEN,
+                channels=CHANNELS, log_sigma_cap=0.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        expected = layers * LONG_SEQ_LEN if name == "ar_decode" else 0
+        if counts != (0, 0, 0, expected):
+            fail(f"{name} at S=512 launched {counts}, expected {expected} "
+                 "flash")
+        if out.shape != shape or not torch.isfinite(out).all():
+            fail(f"{name} at S=512: {tuple(out.shape)}, expected {shape} and "
+                 "finite")
+        say(f"MDN {name} bf16, {MDN_LONG_BATCH} requests of "
+            f"{LONG_SEQ_LEN}x{CHANNELS}: {seconds:.3f} s = "
+            f"{MDN_LONG_BATCH / seconds:.2f} seqs/s, launches {counts}, on "
+            f"{smi}")
+        served.append(counts)
+    return served
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -1952,6 +2233,10 @@ def main():
             phase_ncsn(tmp, smi)
         with Phase("20 ConvNCSN and the toy networks"):
             phase_conv_toy(tmp, smi)
+        with Phase("21 MDN"):
+            phase_mdn(tmp, smi)
+    with Phase("22 MDN at 512 positions"):
+        served.extend(phase_mdn_long(smi))
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a DDPM sampler step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_sampler.py [--layout fused|int8|standard|dense]
+    python3 profile_torch_sampler.py [--layout fused|int8|standard|dense|mdn]
                                      [--batch 64] [--seq_len 32] [--steps 20]
 
 Serves a bf16 flagship TransformerDDPM of ``chip_smoke.py`` on
@@ -13,7 +13,10 @@ there) and ``standard`` (the einsum trunk, or the flash-attention kernel at
 ``--seq_len`` >= 512, and the float head); ``dense`` serves
 ``configs/ddpm-mel-1seq-512.cfg``'s DenseDDPM (6 x 2048, bf16 params as
 ``sample_ncsn`` serves them; resblocks in float32) on 512-d latents
-(``--seq_len`` unused). It prints: wall seconds per step
+(``--seq_len`` unused); ``mdn`` decodes ``--steps`` positions with
+``mdn_decode.ar_decode_cached`` through ``configs/mdn-mel-32seq-512.cfg``'s
+TransformerMDN (float32, as ``sample_mdn`` serves it; a step is one
+position over the KV cache). It prints: wall seconds per step
 (host clock around a synchronised run), the device's busy time per step
 (union of the kernels' intervals in the trace) and its idle share, the
 device time by kind (the port's kernels, the library's matmuls, PyTorch's
@@ -59,32 +62,46 @@ def main():
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq_len", type=int, default=chip_smoke.SEQ_LEN)
-    ap.add_argument("--layout", choices=(*chip_smoke.LAYOUTS, "dense"),
+    ap.add_argument("--layout", choices=(*chip_smoke.LAYOUTS, "dense",
+                                         "mdn"),
                     default="fused",
                     help="fused kernels, the int8 head through w8a8, the "
-                         "standard layout (flash attention at S >= 512), or "
-                         "the single-latent DenseDDPM")
+                         "standard layout (flash attention at S >= 512), "
+                         "the single-latent DenseDDPM, or the MDN's cached "
+                         "decode")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
-    _, model_fn = {"fused": chip_smoke._flagship,
-                   "int8": chip_smoke._int8_flagship,
-                   "standard": chip_smoke._standard_flagship,
-                   "dense": chip_smoke._dense_ddpm}[args.layout]()
-    shape = (chip_smoke.FLAT_WIDTH,) if args.layout == "dense" else \
-        (args.seq_len, chip_smoke.CHANNELS)
-    run = (args.steps, args.batch, shape)
+    if args.layout == "mdn":
+        from smd_tpu_torch.sampling import mdn_decode
+        model = chip_smoke._mdn(max(128, args.steps))
+
+        def serve(steps, seed):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return mdn_decode.ar_decode_cached(
+                gen, model, args.batch, steps=steps,
+                channels=chip_smoke.CHANNELS, log_sigma_cap=0.0)
+    else:
+        _, model_fn = {"fused": chip_smoke._flagship,
+                       "int8": chip_smoke._int8_flagship,
+                       "standard": chip_smoke._standard_flagship,
+                       "dense": chip_smoke._dense_ddpm}[args.layout]()
+        shape = (chip_smoke.FLAT_WIDTH,) if args.layout == "dense" else \
+            (args.seq_len, chip_smoke.CHANNELS)
+
+        def serve(steps, seed):
+            return _serve(model_fn, steps, args.batch, shape, seed)
     with torch.no_grad():
-        _serve(model_fn, 3, args.batch, shape, 0)
+        serve(3, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _serve(model_fn, *run, 1)
+        serve(args.steps, 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            _serve(model_fn, *run, 1)
+            serve(args.steps, 1)
             torch.cuda.synchronize()
 
     report(prof, args.steps, wall, smi,

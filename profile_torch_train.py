@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a training step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_train.py [--mode fp32|mixed|fused|distill]
+    python3 profile_torch_train.py [--mode fp32|mixed|fused|distill|mdn]
                                    [--batch 64] [--steps 20]
 
 Trains the flagship TransformerDDPM of ``chip_smoke.py`` (6 layers, 8
@@ -16,7 +16,10 @@ attention and film kernels forward, their plain versions' gradients
 backward), and ``distill`` (a progressive-distillation step of the fused
 layout at bf16, ``training.distill.make_distill_step`` on the 8-to-4 stage
 of an 8-step start: the teacher, a frozen copy, twice without a gradient,
-the student once with its gradient, clip and Adam). After 5 warm-up steps
+the student once with its gradient, clip and Adam), and ``mdn`` (the
+TransformerMDN of ``configs/mdn-mel-32seq-512.cfg``, float32, on its
+teacher-forced NLL with ``training.mdn.make_train_step``; the flagfile's
+batch is 128). After 5 warm-up steps
 it times ``--steps`` steps (host clock
 around a synchronised run), then traces as many under ``torch.profiler``,
 and prints wall and device-busy ms per step, the idle share, the device
@@ -32,13 +35,20 @@ import torch
 import chip_smoke
 from profile_torch_sampler import report
 
-MODES = ("fp32", "mixed", "fused", "distill")
+MODES = ("fp32", "mixed", "fused", "distill", "mdn")
 
 
 def _state(mode):
     from smd_tpu_torch.models import get_model
     from smd_tpu_torch.models.layers import init_parameters
     from smd_tpu_torch.training import diffusion as trainer
+    if mode == "mdn":
+        model = get_model("TransformerMDN", device="cuda",
+                          data_channels=chip_smoke.CHANNELS,
+                          **chip_smoke.MDN_WIDTH)
+        return trainer.create_train_state(
+            init_parameters(model, 0),
+            trainer.TrainConfig(learning_rate=3e-4, ema=False), init=False)
     fused = mode in ("fused", "distill")
     model = get_model("TransformerDDPM", device="cuda",
                       data_channels=chip_smoke.CHANNELS,
@@ -68,6 +78,9 @@ def main():
         grid, mids = distill.halve_grid(distill.distill_grid(betas, 16))
         step = distill.make_distill_step(state.model, state.params, grid,
                                          mids)
+    elif args.mode == "mdn":
+        from smd_tpu_torch.training import mdn
+        step = mdn.make_train_step()
     else:
         step = trainer.make_train_step(losses.diffusion_loss, betas, True)
     gen = torch.Generator(device="cuda").manual_seed(1)

@@ -321,18 +321,10 @@ def define_sampling_flags():
     F.DEFINE_boolean("interpolate", False, "Interpolate.")
 
 
-def _no_mdn(mdn):
-    if mdn:
-        raise NotImplementedError(
-            "the MDN baseline is not ported to smd_tpu_torch yet: see "
-            "ROADMAP.md, queue A")
-
-
 def train_config_from_flags(mdn: bool = False) -> TrainConfig:
-    _no_mdn(mdn)
-    return TrainConfig(
-        loss=FLAGS.loss,
-        continuous_noise=FLAGS.continuous_noise,
+    """The TrainConfig of the flags. ``mdn``: no objective or noise fields
+    (the MDN entry points define no diffusion flags) and no EMA."""
+    cfg = TrainConfig(
         learning_rate=FLAGS.learning_rate,
         batch_size=FLAGS.batch_size,
         epochs=FLAGS.epochs,
@@ -349,9 +341,15 @@ def train_config_from_flags(mdn: bool = False) -> TrainConfig:
         verbose=FLAGS.verbose,
         scan_chunk=FLAGS.scan_chunk,
         adam_m_bf16=FLAGS.adam_m_bf16,
-        ema=FLAGS.ema,
-        mu=FLAGS.mu,
     )
+    if mdn:
+        cfg.ema = False
+    else:
+        cfg.loss = FLAGS.loss
+        cfg.continuous_noise = FLAGS.continuous_noise
+        cfg.ema = FLAGS.ema
+        cfg.mu = FLAGS.mu
+    return cfg
 
 
 def model_from_flags(data_channels: int, mdn: bool = False, dtype=None,
@@ -360,9 +358,9 @@ def model_from_flags(data_channels: int, mdn: bool = False, dtype=None,
 
     ``data_channels`` is the latent width, which Flax infers from the
     input. ``--mixed_precision`` computes in bfloat16 with float32 params
-    (the layers cast at compute time); ``dtype`` overrides it.
+    (the layers cast at compute time); ``dtype`` overrides it. ``mdn``
+    passes ``--mdn_components`` as the mixture count.
     """
-    _no_mdn(mdn)
     kwargs = dict(num_layers=FLAGS.num_layers, num_heads=FLAGS.num_heads,
                   num_mlp_layers=FLAGS.num_mlp_layers,
                   mlp_dims=FLAGS.mlp_dims, remat=FLAGS.remat)
@@ -370,6 +368,8 @@ def model_from_flags(data_channels: int, mdn: bool = False, dtype=None,
         kwargs["dtype"] = torch.bfloat16
     if dtype is not None:
         kwargs["dtype"] = dtype
+    if mdn:
+        kwargs["mdn_mixtures"] = FLAGS.mdn_components
     return get_model(FLAGS.architecture,
                      device=FLAGS.device if device is None else device,
                      data_channels=data_channels, **kwargs)
@@ -448,11 +448,13 @@ def load_transforms_from_flags():
 def restore_state_for_sampling(input_shape, mdn: bool = False):
     """Rebuild the model from flags and restore the latest checkpoint."""
     from smd_tpu_torch.training import diffusion as dtrainer
+    from smd_tpu_torch.training import mdn as mtrainer
     from smd_tpu_torch.utils.checkpoints import CheckpointManager
 
     model = model_from_flags(input_shape[-1], mdn=mdn)
     config = train_config_from_flags(mdn=mdn)
-    state = dtrainer.create_train_state(model, config, FLAGS.seed)
+    trainer = mtrainer if mdn else dtrainer
+    state = trainer.create_train_state(model, config, FLAGS.seed)
     manager = CheckpointManager(f"{FLAGS.model_dir}/ckpt",
                                 keep=config.checkpoints_to_keep)
     if manager.latest_step is None:

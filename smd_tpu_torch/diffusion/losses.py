@@ -5,8 +5,9 @@ the NCSN family's denoising and sliced score matching
 (``denoising_score_matching_loss``, ``sliced_score_matching_loss``); the
 small losses (``mean_squared_error``, ``series_loss``,
 ``binary_cross_entropy_with_logits``, ``sigmoid_cross_entropy``,
-``kl_divergence_std_normal``) and ``reduce_fn``. The MDN NLL belongs to
-the MDN baseline, still to port (``ROADMAP.md`` queue A, item 9).
+``kl_divergence_std_normal``) and ``reduce_fn``; the mixture NLLs of the
+MDN baseline (``mdn_nll``, ``gaussian_mixture_loss``), each a log-softmax
+and a logsumexp over the components.
 
 An objective takes the model as a plain callable ``model_fn(x, cond)``, as
 the JAX one does. Its draws come from a ``torch.Generator``, or from
@@ -23,6 +24,7 @@ from smd_tpu_torch.diffusion import schedules
 
 __all__ = ["reduce_fn", "padded_alphas_prod", "diffusion_loss",
            "denoising_score_matching_loss", "sliced_score_matching_loss",
+           "gaussian_mixture_loss", "mdn_nll",
            "mean_squared_error", "series_loss",
            "binary_cross_entropy_with_logits", "sigmoid_cross_entropy",
            "kl_divergence_std_normal"]
@@ -196,6 +198,43 @@ def sliced_score_matching_loss(batch, model_fn, sigmas,
     hessian_loss = (vectors * second_grad).reshape(B, -1).sum(-1)
     return reduce_fn((score_loss + hessian_loss) * used.reshape(B) ** 2,
                      reduction)
+
+
+# log(sqrt(2*pi)) in float32, as the JAX package computes it.
+_LOG_SQRT_2PI = float(np.log(np.sqrt(np.float32(2.0 * np.pi))))
+
+
+def _log_gaussian_pdf(y, mu, log_sigma):
+    return -0.5 * ((y - mu) / torch.exp(log_sigma)).square() - log_sigma - \
+        _LOG_SQRT_2PI
+
+
+def gaussian_mixture_loss(log_pi, mu, log_sigma, data, reduction="mean"):
+    """NLL of data under a diagonal Gaussian mixture (toy MDN head).
+
+    Shapes: log_pi (B, K); mu, log_sigma (B, K, D); data (B, D).
+    """
+    loglik = _log_gaussian_pdf(data[:, None, :], mu, log_sigma).sum(dim=2)
+    loss = torch.logsumexp(log_pi + loglik, dim=1)
+    return -reduce_fn(loss, reduction)
+
+
+def mdn_nll(pi, mu, log_sigma, x, reduction="mean"):
+    """Sequence MDN negative log-likelihood: per position, -logsumexp over
+    the K components of log_softmax(pi) plus the diagonal Gaussian's log
+    density of x.
+
+    Shapes: pi (..., K); mu, log_sigma (..., K*D); x (..., D). With
+    ``reduction="none"`` the result is flat, one value per position.
+    """
+    channels = x.shape[-1]
+    k = pi.shape[-1]
+    log_mix = torch.log_softmax(pi.reshape(-1, k), dim=-1)       # (N, K)
+    comp_ll = _log_gaussian_pdf(
+        x.reshape(-1, 1, channels), mu.reshape(-1, k, channels),
+        log_sigma.reshape(-1, k, channels)).sum(-1)              # (N, K)
+    ll = torch.logsumexp(log_mix + comp_ll, dim=-1)
+    return reduce_fn(-ll, reduction)
 
 
 def mean_squared_error(logits, labels, reduction="mean"):

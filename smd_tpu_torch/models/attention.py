@@ -1,13 +1,20 @@
 """Multi-head self-attention (port of ``smd_tpu/models/attention.py``).
 
-The non-decode path, routed as the JAX layer routes it: on an accelerator
-(here a CUDA tensor) sequences of at least ``use_flash_min_len`` positions
-that ``flash_attention.supported`` takes go to the flash-attention kernel;
-otherwise, with ``use_packed``, float32/bf16 short sequences go to
+The full-sequence path, routed as the JAX layer routes it: on an
+accelerator (here a CUDA tensor) sequences of at least ``use_flash_min_len``
+positions that ``flash_attention.supported`` takes go to the flash-attention
+kernel; otherwise, with ``use_packed``, float32/bf16 short sequences go to
 ``packed_short_seq_attention``; everything else, and every CPU tensor, takes
 the einsum path.
+
+Incremental decoding (``MultiHeadSelfAttention.decode``) takes one position
+at a time and attends over a key/value cache, as the JAX layer's decode
+branch does; the cache is a ``KVCache`` the caller holds and passes in, not
+state kept in the module.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -15,7 +22,23 @@ from torch import nn
 from smd_tpu_torch.models.layers import DenseGeneral
 from smd_tpu_torch.ops import flash_attention as fa
 
-__all__ = ["MultiHeadSelfAttention", "route"]
+__all__ = ["KVCache", "MultiHeadSelfAttention", "route"]
+
+
+class KVCache(NamedTuple):
+    """The keys and values of the positions decoded so far.
+
+    ``keys[l]`` and ``values[l]`` are layer l's (B, L, H, Dh) buffers, L the
+    model's ``max_decode_length``, in the dtype of the layer's key and value
+    projections; ``index`` is the next position to decode. A decode step
+    writes position ``index`` of the buffers in place and returns a cache
+    with ``index + 1`` that shares them: positions past a cache's index are
+    masked out, so an earlier cache stays valid for decoding its position
+    again.
+    """
+    keys: Tuple[torch.Tensor, ...]
+    values: Tuple[torch.Tensor, ...]
+    index: int
 
 
 def _on_accelerator(x: torch.Tensor) -> bool:
@@ -87,3 +110,22 @@ class MultiHeadSelfAttention(nn.Module):
             weights = torch.softmax(scores, dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(out)
+
+    def decode(self, x, keys, values, index: int):
+        """One position ``x`` (B, 1, E) at ``index``: its key and value
+        written into the (B, L, H, Dh) buffers ``keys`` and ``values`` in
+        place, then attention over positions ``0..index`` of them (the
+        einsum; the flash kernel takes no single query)."""
+        if x.shape[1] != 1:
+            raise ValueError("decode consumes one position at a time, got "
+                             f"{x.shape[1]}")
+        dh = self.features // self.num_heads
+        q, k, v = self.qkv(x).unbind(dim=-3)  # each (B, 1, H, Dh)
+        keys[:, index] = k[:, 0]
+        values[:, index] = v[:, 0]
+        q = q / torch.tensor(dh ** 0.5, dtype=q.dtype)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, keys)
+        mask = torch.arange(keys.shape[1], device=x.device) <= index
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        weights = torch.softmax(scores, dim=-1)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, values))

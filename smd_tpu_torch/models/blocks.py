@@ -24,6 +24,7 @@ __all__ = [
     "DenseResBlock",
     "FusedDenseResBlock",
     "QuantDenseResBlock",
+    "MDN",
 ]
 
 
@@ -263,3 +264,24 @@ class QuantDenseResBlock(nn.Module):
                                        shift), 1)
         x = self._dense(_ln_film_swish(self.LayerNorm_1, x, scale, shift), 2)
         return x + inputs
+
+
+class MDN(nn.Module):
+    """Mixture-density output head: unnormalized (pi, mu, log_sigma).
+
+    ``pi`` is (..., num_components); ``mu`` and ``log_sigma`` are (...,
+    num_components * out_channels). The Denses have no dtype, as in Flax:
+    they compute in the promoted type of their input and params.
+    """
+
+    def __init__(self, in_features: int, out_channels: int = 512,
+                 num_components: int = 10):
+        super().__init__()
+        width = out_channels * num_components
+        self.Dense_0 = Dense(in_features, width)           # mu
+        self.Dense_1 = Dense(in_features, width)           # log_sigma
+        self.Dense_2 = Dense(in_features, num_components)  # pi
+
+    def forward(self, inputs):
+        return self.Dense_2(inputs), self.Dense_0(inputs), \
+            self.Dense_1(inputs)

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from smd_tpu_torch.models.attention import MultiHeadSelfAttention
+from smd_tpu_torch.models.attention import KVCache, MultiHeadSelfAttention
 from smd_tpu_torch.models.blocks import (DenseFiLM, DenseResBlock,
                                          FusedDenseResBlock,
                                          QuantDenseResBlock, _swish,
@@ -64,8 +64,14 @@ class TransformerLayer(nn.Module):
         self.Dense_0 = Dense(e, mlp_dims, dtype=dtype)
         self.Dense_1 = Dense(mlp_dims, e, dtype=dtype)
 
-    def forward(self, x):
-        x = self.MultiHeadSelfAttention_0(self.LayerNorm_0(x)) + x
+    def forward(self, x, kv=None):
+        """``kv``: (keys, values, index) of this layer's cache to decode one
+        position (``MultiHeadSelfAttention.decode``); None for the whole
+        sequence."""
+        h = self.LayerNorm_0(x)
+        attention = self.MultiHeadSelfAttention_0
+        h = attention(h) if kv is None else attention.decode(h, *kv)
+        x = h + x
         h = self.Dense_0(self.LayerNorm_1(x))
         h = self.Dense_1(nn.functional.gelu(h, approximate="tanh"))
         return h + x
@@ -119,17 +125,25 @@ class FusedTransformerLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Pre-LN transformer trunk: Dense embed + sinusoidal positions, then
-    ``num_layers`` attention + MLP blocks."""
+    ``num_layers`` attention + MLP blocks.
+
+    ``decode`` runs one position over a ``KVCache`` (``init_cache``) of
+    ``max_decode_length`` positions, in the standard layout only.
+    """
 
     def __init__(self, in_channels: int, num_layers: int = 6,
                  num_heads: int = 8, mlp_dims: int = 2048,
                  embed_channels: int = 128, causal: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_attention: bool = False, remat: bool = False):
+                 fused_attention: bool = False, remat: bool = False,
+                 max_decode_length: int = 128):
         super().__init__()
         self.embed_channels = embed_channels
+        self.num_heads = num_heads
         self.dtype = dtype
         self.remat = remat
+        self.fused_attention = fused_attention
+        self.max_decode_length = max_decode_length
         self.Dense_0 = Dense(in_channels, embed_channels, dtype=dtype)
         cls = FusedTransformerLayer if fused_attention else TransformerLayer
         self.layer_names = []
@@ -153,6 +167,49 @@ class TransformerEncoder(nn.Module):
             else:
                 x = layer(x)
         return x
+
+    def _standard_layout_only(self):
+        if self.fused_attention:
+            raise NotImplementedError(
+                "incremental decoding uses the standard layer layout")
+
+    def init_cache(self, batch: int) -> KVCache:
+        """An empty cache on the params' device: zero keys and values of
+        (batch, L, H, Dh) per layer, in the dtype the key and value
+        projections compute in (the promoted type of the layer's LN output
+        and the projection's params, as Flax gives ``k.dtype``), and index
+        0."""
+        self._standard_layout_only()
+        dh = self.embed_channels // self.num_heads
+        shape = (batch, self.max_decode_length, self.num_heads, dh)
+        keys, values = [], []
+        for name in self.layer_names:
+            qkv = getattr(self, name).MultiHeadSelfAttention_0.qkv
+            dtype = torch.promote_types(
+                torch.promote_types(self.dtype, qkv.kernel.dtype),
+                qkv.bias.dtype)
+            for buffers in (keys, values):
+                buffers.append(torch.zeros(shape, dtype=dtype,
+                                           device=qkv.kernel.device))
+        return KVCache(tuple(keys), tuple(values), 0)
+
+    def decode(self, x, cache: KVCache):
+        """One position ``x`` (B, 1, C) at ``cache.index``, its positional
+        row sliced from the ``max_decode_length`` table as the JAX layer
+        slices it; returns (output (B, 1, E), the cache advanced by one)."""
+        self._standard_layout_only()
+        index = cache.index
+        if not 0 <= index < self.max_decode_length:
+            raise ValueError(f"position {index} is past the cache's "
+                             f"max_decode_length={self.max_decode_length}")
+        x = x.to(self.dtype)
+        table = positional_encoding(self.max_decode_length,
+                                    self.embed_channels, device=x.device)
+        x = self.Dense_0(x) + table[index:index + 1].to(self.dtype)[None]
+        for name, keys, values in zip(self.layer_names, cache.keys,
+                                      cache.values):
+            x = getattr(self, name)(x, kv=(keys, values, index))
+        return x, cache._replace(index=index + 1)
 
 
 class TransformerDDPM(nn.Module):

@@ -4,7 +4,7 @@ from __future__ import annotations
 import inspect
 
 from smd_tpu_torch.device import resolve_device
-from smd_tpu_torch.models import ddpm
+from smd_tpu_torch.models import autoregressive, ddpm
 
 __all__ = ["MODEL_REGISTRY", "get_model"]
 
@@ -16,9 +16,8 @@ MODEL_REGISTRY = {
     "ConvNCSN": ddpm.ConvNCSN,
     "ToyDDPM": ddpm.ToyDDPM,
     "ToyNCSN": ddpm.ToyNCSN,
+    "TransformerMDN": autoregressive.TransformerMDN,
 }
-# Named by the JAX registry, not ported yet (ROADMAP.md, queue A).
-_NOT_PORTED = ("TransformerMDN",)
 
 
 def get_model(name: str, device=None, **kwargs):
@@ -28,10 +27,6 @@ def get_model(name: str, device=None, **kwargs):
     ``device`` is ``cuda`` unless the caller passes ``"cpu"``; without a GPU
     that is an error (``device.resolve_device``).
     """
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to smd_tpu_torch yet: see ROADMAP.md, "
-            "queue A")
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"Unknown architecture {name!r}; known: {sorted(MODEL_REGISTRY)}")

@@ -5,9 +5,10 @@
 
 Reads the same layered ``configs/*.cfg`` flagfiles as the JAX package's
 ``train_ncsn.py``, and ``--device`` (``cuda`` unless ``--device=cpu``; no
-GPU is an error). Every architecture but ``TransformerMDN`` trains, on
-the DDPM objective (``--loss=ddpm``) or on denoising or sliced score
-matching (``dsm``, ``ssm``) for the NCSN family; ``--distill`` distills
+GPU is an error). Every architecture but ``TransformerMDN`` (which
+``python -m smd_tpu_torch.train_mdn`` trains) trains, on the DDPM
+objective (``--loss=ddpm``) or on denoising or sliced score matching
+(``dsm``, ``ssm``) for the NCSN family; ``--distill`` distills
 the latest DDPM checkpoint for few-step sampling
 (``--distill_mode=progressive``, ``consistency`` or ``ct``) into
 ``MODEL_DIR/distilled/`` bundles, which ``python -m

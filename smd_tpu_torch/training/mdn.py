@@ -1,0 +1,86 @@
+"""Autoregressive Transformer-MDN training harness (port of
+``smd_tpu/training/mdn.py``).
+
+The objective is the teacher-forced mixture NLL (``losses.mdn_nll``); the
+step is the diffusion harness's: gradient, the gradients' unclipped global
+norm, clip and Adam, with the metrics ``loss``, ``grad`` and ``lr``. The
+reference MDN has no EMA. The JAX package's ``make_train_chunk`` fuses
+``scan_chunk`` steps into one dispatch; here, as in the diffusion harness,
+each step is launched on its own and ``scan_chunk`` changes nothing
+(``loop.run_loop``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from smd_tpu_torch.diffusion.losses import mdn_nll
+from smd_tpu_torch.training import diffusion as dtrainer
+from smd_tpu_torch.training import loop as loop_lib
+from smd_tpu_torch.training.diffusion import TrainConfig
+from smd_tpu_torch.training.state import TrainState
+from smd_tpu_torch.utils import logging as log_lib
+
+__all__ = ["create_train_state", "make_train_step", "make_eval_step", "fit"]
+
+
+def create_train_state(model, config: TrainConfig, seed: int = 0,
+                       init: bool = True) -> TrainState:
+    """The diffusion harness's state without the EMA, whatever
+    ``config.ema`` says: the reference MDN checkpoints no EMA."""
+    return dtrainer.create_train_state(
+        model, dataclasses.replace(config, ema=False), seed, init)
+
+
+def make_train_step():
+    """``train_step(state, batch) -> (state, metrics)``: one step on the
+    teacher-forced NLL, averaged over every position of the batch."""
+
+    def train_step(state: TrainState, batch):
+        pi, mu, log_sigma = state.model(batch)
+        return state, state.descend(mdn_nll(pi, mu, log_sigma, batch,
+                                            "mean"))
+
+    return train_step
+
+
+def make_eval_step():
+    """``eval_step(model, batch, generator=None) -> NLL summed over the
+    batch's positions, over the sequence length``: each example's mean NLL
+    a position, summed."""
+
+    @torch.no_grad()
+    def eval_step(model, batch, generator=None):
+        del generator
+        pi, mu, log_sigma = model(batch)
+        return mdn_nll(pi, mu, log_sigma, batch, "sum") / batch.shape[1]
+
+    return eval_step
+
+
+def fit(model,
+        train_data: Callable[[], Iterable],
+        eval_data: Callable[[], Iterable],
+        input_shape,
+        config: TrainConfig,
+        model_dir: Optional[str] = None,
+        seed: int = 0,
+        snapshot_callback: Optional[Callable] = None,
+        step_callback: Optional[Callable] = None):
+    """Train a TransformerMDN; see ``loop.run_loop`` for the loop.
+
+    ``model`` is on the device to train on; its params are drawn anew from
+    ``seed``. ``input_shape`` is the JAX signature's per-example shape,
+    where the model's shapes come from its init. Returns the final
+    TrainState.
+    """
+    del input_shape
+    state = create_train_state(model, config, seed)
+    log_lib.report_params(state.params)
+    return loop_lib.run_loop(state, make_train_step(), make_eval_step(),
+                             train_data, eval_data, config,
+                             model_dir=model_dir,
+                             snapshot_callback=snapshot_callback,
+                             step_callback=step_callback)

@@ -27,7 +27,7 @@ from smd_tpu_torch.sampling import generate
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(p.name for p in (ROOT / "configs").glob("*.cfg")
-                 if p.name.startswith(("ddpm-", "ncsn-")))
+                 if p.name.startswith(("ddpm-", "ncsn-", "mdn-")))
 OVERRIDES = ["--max_steps=7", "--noema", "--data_shape=4,8",
              "--learning_rate", "2e-4", "--nonormalize", "--remat",
              "--mixed_precision=true", "--sampling=ddim", "--lr_warmup=3"]

@@ -535,6 +535,7 @@ def _assert_flash_close(out, ref):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B,S,H,Dh,causal,block_diag", [
     (2, 512, 8, 16, False, 0),      # the served shape, fewer items
+    (2, 512, 8, 16, True, 0),       # the MDN's causal shape, fewer items
     (2, 384, 2, 16, True, 0),       # a 128-row q tile over two k tiles
     (1, 200, 2, 32, True, 0),       # ragged: S a multiple of no tile
     (2, 384, 2, 16, False, 96),     # groups that leave whole k tiles out
@@ -778,3 +779,56 @@ def test_distillation_gradient_through_the_kernels(cuda):
     for a, b in zip(ours, ref):
         assert torch.isfinite(a).all()
         assert (a - b).norm() <= 1e-3 * b.norm()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_mdn_flash_route_matches_plain(cuda, dtype):
+    """The TransformerMDN at S=512 through the causal kernel against the
+    same model through its plain version: the forward (one launch a layer)
+    and every parameter's NLL gradient; the cached decode launches nothing.
+    float32 within 1e-4 (sums in another order); bf16 compute on bf16
+    trunk params (the head stays float32) within 5e-2 of the largest
+    output and each gradient within 5e-2 of its norm, chip_smoke's fused
+    limits: one bf16 ulp of the attention output carried through the
+    layers."""
+    from smd_tpu_torch.diffusion.losses import mdn_nll
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.ops import flash_attention as fa
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerMDN", device=cuda, data_channels=42,
+                      num_layers=2, num_heads=8, num_mlp_layers=1,
+                      mlp_dims=256, mdn_mixtures=4, dtype=dtype)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model.TransformerEncoder_0.to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 512, 42, generator=g, device=cuda)
+
+    def run():
+        out = model(x)
+        grads = torch.autograd.grad(mdn_nll(*out, x),
+                                    list(model.parameters()))
+        return [o.detach() for o in out], grads
+
+    before = fa.flash_attention.launches
+    out, grads = run()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    model.use_plain_ops(True)
+    ref, ref_grads = run()
+    model.use_plain_ops(False)
+    assert fa.flash_attention.launches == before + 2
+    for o, r in zip(out, ref):
+        assert o.dtype == F32
+        if dtype == F32:
+            torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-4)
+        else:
+            assert float((o - r).abs().max()) <= 5e-2 * float(r.abs().max())
+    for a, b in zip(grads, ref_grads):
+        rel = float((a.float() - b.float()).norm() /
+                    b.float().norm().clamp_min(1e-30))
+        assert rel <= (1e-4 if dtype == F32 else 5e-2), rel
+    with torch.no_grad():
+        cache = model.init_cache(2)
+        model.decode(x[:, :1], cache)
+    assert fa.flash_attention.launches == before + 2

@@ -79,6 +79,21 @@ def test_entry_points_raise_without_gpu(no_gpu):
         generate.make_init(None, 2, (4, 2), "ddpm")
 
 
+def test_mdn_entry_points_raise_without_gpu(no_gpu):
+    from smd_tpu_torch.sampling import mdn_decode
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("TransformerMDN", data_channels=4, num_layers=1,
+                  mlp_dims=16, embed_channels=16, num_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mdn_decode.ar_decode(None, lambda t: None, 2, steps=4, channels=4)
+    model = get_model("TransformerMDN", device="cpu", data_channels=4,
+                      num_layers=1, mlp_dims=16, embed_channels=16,
+                      num_heads=2, mdn_mixtures=2)
+    out = mdn_decode.ar_decode_cached(torch.Generator().manual_seed(0),
+                                      model, 2, steps=4, channels=4)
+    assert out.shape == (2, 4, 4) and out.device.type == "cpu"
+
+
 def test_entry_points_run_on_cpu_when_asked(no_gpu):
     model = get_model("TransformerDDPM", device="cpu", data_channels=8,
                       num_layers=1, mlp_dims=32, embed_channels=16,

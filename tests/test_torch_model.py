@@ -163,8 +163,10 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="exclude"):
         get_model("TransformerDDPM", device="cpu", data_channels=C,
                   fused_head=True, quantized_head=True, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("TransformerMDN", device="cpu")
+    # The MDN baseline is ported; it builds with the JAX defaults.
+    mdn = get_model("TransformerMDN", device="cpu", data_channels=C)
+    assert len(mdn.TransformerEncoder_0.layer_names) == 6
+    assert mdn.mdn.Dense_2.kernel.shape == (2048, 100)
     with pytest.raises(ValueError):
         get_model("NoSuchModel", device="cpu")
 

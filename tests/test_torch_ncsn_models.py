@@ -17,6 +17,7 @@ import torch
 from smd_tpu.models import ddpm as jddpm
 from smd_tpu.models import get_model as jax_get_model
 from smd_tpu.models import blocks as jblocks
+from smd_tpu.models import registry as jregistry
 from smd_tpu_torch.models import (MODEL_REGISTRY, blocks, ddpm, get_model,
                                   registry)
 from smd_tpu_torch.models.layers import Conv, GroupNorm
@@ -226,15 +227,22 @@ def test_bf16_noise_encoding_scales_as_jax():
 
 
 def test_registry_builds_every_network_but_the_mdn():
-    assert registry._NOT_PORTED == ("TransformerMDN",)
+    assert set(registry.MODEL_REGISTRY) == set(jregistry.MODEL_REGISTRY)
     for name in ("DenseDDPM", "DenseNCSN", "ConvNCSN", "ToyDDPM", "ToyNCSN"):
         model = get_model(name, device="cpu", data_channels=4, num_layers=1,
                           mlp_dims=16, num_heads=8, num_mlp_layers=2,
                           remat=True, dtype=torch.bfloat16)
         assert type(model) is MODEL_REGISTRY[name]
         assert {p.dtype for p in model.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("TransformerMDN", device="cpu")
+    # The MDN, ported since, builds with the JAX defaults (6 causal layers
+    # of 8 heads, 2 x 2048 resblocks, 100 mixtures, a 128-position cache).
+    mdn = get_model("TransformerMDN", device="cpu", data_channels=4)
+    assert type(mdn) is MODEL_REGISTRY["TransformerMDN"]
+    assert len(mdn.TransformerEncoder_0.layer_names) == 6
+    assert mdn.TransformerEncoder_0.TransformerLayer_0 \
+        .MultiHeadSelfAttention_0.causal
+    assert len(mdn.block_names) == 2 and mdn.max_decode_length == 128
+    assert mdn.mdn.Dense_0.kernel.shape == (2048, 400)
     # The toy defaults, as the JAX fields give them.
     toy = get_model("ToyNCSN", device="cpu", data_channels=2)
     assert len(toy.block_names) == 3 and toy.Dense_0.kernel.shape == (2, 256)
