@@ -142,6 +142,29 @@ Phases, one flushed line each with its seconds:
     full forwards: 512 x 6 flash launches) and ``ar_decode_cached`` (no
     launch).
 
+23. codec and generation. (a) The MusicVAE codec ``melody-2-big`` at full
+    width (BiLSTM-2048 encoder, 3 x 2048 LSTM decoder, 512-d latent,
+    vocabulary 90) with float32 weights from a seed: 2,048 two-bar chunks
+    of 64 seeded pieces, tokenized by the port's converter, encoded and
+    their mu decoded at temperature 1e-3, float32 and at bf16 compute, in
+    chunks/s between two synchronizes; the decode under the profiler at 64
+    and 2,048 chunks (device operations a step, idle share); on 64 chunks
+    the card against the same model on the CPU: mu, sigma and the
+    teacher-forced logits within CODEC_RTOL of the norm, and free-running
+    tokens with the same Gumbel draws equal up to each row's first near
+    tie (CODEC_MARGIN); then 64 latents through ``melody-16-big`` and
+    ``multi-1-big``, weights from a seed. (b) The fused flagship (phase 4's
+    weights, bf16) samples 64 requests of 32x42 with DPM++-8 (film +4 and
+    attention +6 a model call, all on the tensor-core kernel); the latents
+    inverse-transformed through a seeded 42-index slice to 512 dims and
+    decoded by (a)'s codec into 64 MIDI files, each read back with one
+    note per note-on token. (c) ``generate_melodies`` on a bundle of the
+    port's writer (the standard flagship from a seed, 512x42) with
+    ``--sampler=dpmpp --steps=8 --n=4``: flash +48, 2,048 chunks decoded,
+    4 MIDI files read back likewise; ``generate_song_data`` on 16 seeded
+    MIDI files and ``decode_dataset`` on its records, every record finite
+    and of its shape.
+
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
 
@@ -2181,6 +2204,609 @@ def phase_mdn_long(smi):
     return served
 
 
+# The MusicVAE codec and noise -> MIDI (phase 23). The codecs are the
+# shipped architectures at full width with float32 weights from a seed: a
+# copy of the repository for the card leaves the trained bundles
+# (checkpoints/) out, as for the flagship's slice above.
+CODEC_PIECES, CODEC_CHUNKS = 64, 32   # 64 pieces x 32 two-bar chunks
+CODEC_CPU = 64                        # chunks held against the CPU
+CODEC_HIER = 64                       # latents through each hierarchical
+GEN_BATCH, GEN_STEPS = 64, 8          # noise -> MIDI: 64 requests, DPM++-8
+MELODIES = 4                          # generate_melodies --n (512 x 42)
+SONG_FILES = 16                       # MIDI files for generate_song_data
+DATA_RANGE = (-3.0, 3.0)              # the bundles' normalization range
+# The float32 codec on the card against the same model on the CPU (TF32
+# off): |card - cpu| <= CODEC_RTOL * |cpu| in norm for mu, sigma and the
+# teacher-forced logits: float32 sums in other orders through 32 steps of
+# 2048-unit LSTMs, as CPU_RTOL holds the dense networks.
+CODEC_RTOL = 1e-4
+# Free-running tokens at temperature 1e-3 with the same Gumbel draws: equal
+# on each row up to the first step where the CPU run's top-two gap of
+# logits + temperature * Gumbel is below CODEC_MARGIN (a float32 logit
+# moves by ~1e-6 between the devices; a gap below the margin may flip).
+CODEC_MARGIN = 1e-3
+CODEC_TEMPERATURE = 1e-3
+# The bf16 codec (what the codec scripts serve on the card by default)
+# against the float32 one on the card, on all the chunks: mu and the
+# teacher-forced logits within these fractions of the norm, and the
+# free-running tokens from the float32 mu with the same draws equal on each
+# row up to its first step whose float32 top-two gap is below
+# CODEC_BF16_MARGIN. CODEC_BF16_FAULT is planted each run and must be
+# caught. The readings behind the limits (``study_torch_tolerances.py
+# --codec``, PERF.md section 5), over weight seeds 23-25 (this phase's is
+# 23): clean, mu 2.16e-3-2.38e-3 and logits 3.64e-3-3.71e-3 of the norm,
+# tokens equal up to a gap of 1.36e-3 at most; every input product one
+# bf16 ulp high (xi+1ulp), mu 3.16e-3-3.56e-3 and logits 4.30e-3-4.50e-3;
+# the logits rounded to bf16, logits 3.98e-3-4.06e-3. The encoder's cell
+# state rounded to bf16 moves mu by 3% (2.24e-3-2.46e-3), inside bf16's
+# own spread: no limit against float32 tells it apart.
+CODEC_BF16_MU = 2.8e-3
+CODEC_BF16_LOGITS = 4.0e-3
+CODEC_BF16_MARGIN = 3e-3
+CODEC_BF16_FAULT = "xi+1ulp"
+
+
+def _codec_tree(cfg, seed):
+    """A Flax-layout float32 tree of ``cfg``'s MusicVAE from ``seed``."""
+    from smd_tpu_torch.codec.musicvae import MusicVAE
+    from smd_tpu_torch.utils.flax_params import random_flax_params
+    with torch.device("meta"):
+        shapes = MusicVAE(cfg)
+    return random_flax_params(shapes, seed)
+
+
+def _melody_pieces(seed, count, bars):
+    """``count`` seeded monophonic pieces of ``bars`` bars at 120 qpm (a
+    bar is 2 s), as the port's NoteSequences."""
+    from smd_tpu_torch.codec.note_sequence import (NoteSequence, Tempo,
+                                                   TimeSignature)
+    rng = np.random.default_rng(seed)
+    pieces = []
+    for _ in range(count):
+        ns = NoteSequence(tempos=[Tempo(qpm=120.0)],
+                          time_signatures=[TimeSignature()])
+        t, end, pitch = 0.0, 2.0 * bars, int(rng.integers(55, 80))
+        while t < end:
+            dur = float(rng.choice([0.25, 0.5, 0.5, 1.0]))
+            if rng.random() < 0.85 or t + dur >= end:
+                ns.add_note(pitch, int(rng.integers(60, 110)), t,
+                            min(t + 0.9 * dur, end))
+            pitch = int(np.clip(pitch + rng.integers(-4, 5), 48, 84))
+            t += dur
+        pieces.append(ns)
+    return pieces
+
+
+def _rel_norm(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def _synced(fn):
+    """(fn(), seconds between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def trace_summary(prof):
+    """(device events, device-busy us, span us, idle share) of a
+    ``torch.profiler`` trace: busy is the union of the device events'
+    intervals, the span runs from the first event to the last, host or
+    device, and the idle share is 1 - busy / span."""
+    device, spans = [], []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device.append(evt)
+        spans.append((evt.time_range.start, evt.time_range.end))
+    if not device:
+        fail("the profiler recorded no device time")
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in device])
+    span = max(e for _, e in spans) - min(s for s, _ in spans)
+    return device, busy, span, 1 - busy / span
+
+
+def _profile(fn, steps):
+    """(device operations a step, device-busy ms a step, profiled ms a
+    step, idle share) of ``fn`` under ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device, busy, span, idle = trace_summary(prof)
+    return len(device) / steps, busy / 1e3 / steps, span / 1e3 / steps, idle
+
+
+def _tokens_until_close(ours, ref, logits, gumbel):
+    """Steps compared: each row of ``ours`` equals ``ref`` up to its first
+    step whose top-two gap of logits + temperature * Gumbel (``logits``
+    and ``gumbel`` of the ``ref`` run) is below CODEC_MARGIN."""
+    scores = (logits + CODEC_TEMPERATURE * gumbel).float().cpu()
+    top2 = scores.topk(2, dim=-1).values
+    close = (top2[..., 0] - top2[..., 1]) < CODEC_MARGIN
+    ours, ref = ours.cpu(), ref.cpu()
+    compared = 0
+    for row in range(ref.shape[0]):
+        hits = torch.nonzero(close[row])
+        stop = int(hits[0]) if len(hits) else ref.shape[1]
+        if not torch.equal(ours[row, :stop], ref[row, :stop]):
+            fail(f"codec decode row {row}: card tokens "
+                 f"{ours[row, :stop].tolist()} differ from the CPU's "
+                 f"{ref[row, :stop].tolist()} before a top-two gap below "
+                 f"{CODEC_MARGIN}")
+        compared += stop
+    return compared
+
+
+@contextlib.contextmanager
+def codec_fault(model, fault):
+    """A planted fault in the bf16 codec ``model`` (None: none):
+
+    - ``enc-carry-bf16``: the encoder's cell state rounded to bf16 each step
+      (flax keeps it float32);
+    - ``xi+1ulp``: every input product one bf16 ulp towards +inf;
+    - ``logits-bf16``: the decoder's logits rounded to bf16 (they are
+      float32).
+    """
+    from smd_tpu_torch.codec import musicvae as mv
+    undo = []
+    if fault == "enc-carry-bf16":
+        for cell in (model.encoder.OptimizedLSTMCell_0,
+                     model.encoder.OptimizedLSTMCell_1):
+            def step(carry, xi, w_h, b_h, _step=cell.step):
+                c, h = _step(carry, xi, w_h, b_h)
+                return c.bfloat16().to(c.dtype), h
+            cell.step = step
+            undo.append(lambda cell=cell: delattr(cell, "step"))
+    elif fault == "xi+1ulp":
+        product = mv.input_product
+
+        def faulty(x, w_i):
+            out = product(x, w_i)
+            return torch.nextafter(out, torch.full_like(out, float("inf")))
+        mv.input_product = faulty
+        undo.append(lambda: setattr(mv, "input_product", product))
+    elif fault == "logits-bf16":
+        hook = model.decoder.cell.logits.register_forward_hook(
+            lambda m, i, out: out.bfloat16().float())
+        undo.append(hook.remove)
+    elif fault is not None:
+        raise ValueError(f"no codec fault {fault!r}")
+    try:
+        yield
+    finally:
+        for f in undo:
+            f()
+
+
+def codec_reference(model, x, gumbel):
+    """The float32 codec's (mu, teacher-forced logits, free-running logits,
+    tokens) on chunks ``x``, decoding mu with the draws ``gumbel``."""
+    mu, _ = model.encoder(x)
+    teacher = model(x, noise=torch.zeros_like(mu))[0]
+    logits, tokens = model.decode(mu, CODEC_TEMPERATURE, gumbel=gumbel)
+    return mu, teacher, logits, tokens
+
+
+def codec_bf16_readings(ref, bf16, x, gumbel, fault=None):
+    """The bf16 codec ``bf16`` against ``codec_reference``'s ``ref``: mu's
+    and the teacher-forced logits' |err| / |ref| in norm; ``margin_needed``,
+    the least top-two gap of the float32 run at or before a row's first
+    differing token, over the rows that differ (the tokens pass below a
+    margin above it); the steps compared at CODEC_BF16_MARGIN, and the
+    share of equal tokens."""
+    mu, teacher, logits, tokens = ref
+    with codec_fault(bf16, fault):
+        mu16, _ = bf16.encoder(x)
+        teacher16 = bf16(x, noise=torch.zeros_like(mu))[0]
+        _, tokens16 = bf16.decode(mu, CODEC_TEMPERATURE, gumbel=gumbel)
+    top2 = (logits + CODEC_TEMPERATURE * gumbel).topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    length = tokens.shape[1]
+    steps = torch.arange(length, device=gap.device)
+
+    def first(mask):
+        return torch.where(mask.any(1), mask.int().argmax(1), length)
+
+    differ = tokens16 != tokens
+    rows = differ.any(1)
+    upto = steps[None] <= first(differ)[:, None]
+    needed = torch.where(upto, gap, float("inf")).min(1).values[rows]
+    return {"mu": _rel_norm(mu16, mu),
+            "logits": _rel_norm(teacher16, teacher),
+            "margin_needed": float(needed.max()) if len(needed) else 0.0,
+            "compared": int(first(gap < CODEC_BF16_MARGIN).sum()),
+            "steps": tokens.numel(),
+            "equal": float((~differ).float().mean())}
+
+
+def codec_bf16_exceeded(r):
+    """The limits the readings ``r`` exceed."""
+    out = []
+    if not r["mu"] <= CODEC_BF16_MU:
+        out.append(f"mu {r['mu']:.3e} of the norm > {CODEC_BF16_MU}")
+    if not r["logits"] <= CODEC_BF16_LOGITS:
+        out.append(f"teacher-forced logits {r['logits']:.3e} of the norm > "
+                   f"{CODEC_BF16_LOGITS}")
+    if not r["margin_needed"] < CODEC_BF16_MARGIN:
+        out.append(f"tokens differ before a float32 top-two gap below "
+                   f"{CODEC_BF16_MARGIN} (least gap up to a row's first "
+                   f"difference {r['margin_needed']:.3e})")
+    return out
+
+
+def _codec_bf16_check(codec, bf16, x, smi):
+    """Hold the bf16 codec to the float32 one on ``x`` by the limits
+    above, and catch CODEC_BF16_FAULT planted."""
+    cfg = codec.config
+    gumbel = card_gumbel((x.shape[0], cfg.max_seq_len, cfg.depth))
+    ref = codec_reference(codec, x, gumbel)
+    sound = codec_bf16_readings(ref, bf16, x, gumbel)
+    exceeded = codec_bf16_exceeded(sound)
+    if exceeded:
+        fail("the bf16 codec against float32 on the card: "
+             + "; ".join(exceeded))
+    if sound["compared"] < sound["steps"] // 4:
+        fail(f"bf16 codec tokens: only {sound['compared']} of "
+             f"{sound['steps']} steps before a near tie; the check holds "
+             "too little")
+    faulted = codec_bf16_readings(ref, bf16, x, gumbel, CODEC_BF16_FAULT)
+    if not codec_bf16_exceeded(faulted):
+        fail(f"the bf16 codec check passes a planted {CODEC_BF16_FAULT} "
+             f"fault: {faulted}")
+
+    def line(r):
+        return (f"mu {r['mu']:.3e}, teacher-forced logits {r['logits']:.3e} "
+                f"of the norm, tokens {r['equal']:.4f} equal, least gap up "
+                f"to a row's first difference {r['margin_needed']:.3e}")
+    say(f"codec bf16 against float32 on the card, {x.shape[0]} chunks: "
+        f"{line(sound)} (limits {CODEC_BF16_MU}, {CODEC_BF16_LOGITS}, "
+        f"tokens equal on {sound['compared']} of {sound['steps']} steps up "
+        f"to each row's first gap below {CODEC_BF16_MARGIN}); planted "
+        f"{CODEC_BF16_FAULT}: {line(faulted)}, caught: "
+        f"{'; '.join(codec_bf16_exceeded(faulted))}; on {smi}")
+
+
+def card_gumbel(shape, seed=37):
+    """Seeded Gumbel draws on the card."""
+    from smd_tpu_torch.codec.musicvae import gumbel_noise
+    return gumbel_noise(shape, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+
+
+def codec_chunks():
+    """CODEC_PIECES x CODEC_CHUNKS two-bar one-hot chunks (N, 32, 90),
+    tokenized by the port's converter from seeded pieces."""
+    from smd_tpu_torch.codec.melody import melody_2bar_converter
+    chunks, seed = [], 0
+    n_chunks = CODEC_PIECES * CODEC_CHUNKS
+    while len(chunks) < n_chunks:
+        for ns in _melody_pieces(seed, CODEC_PIECES, 2 * CODEC_CHUNKS):
+            chunks += melody_2bar_converter.to_tensors(ns).inputs[::2]
+        seed += 1
+    return torch.from_numpy(np.stack(chunks[:n_chunks]))
+
+
+def phase_codec(tmp, smi):
+    """melody-2-big at full width, float32 weights from a seed: 2,048
+    tokenized chunks encoded and their mu decoded on the card, float32 and
+    bf16, timed; the card against the CPU on 64 chunks; then 64 latents
+    decoded through melody-16-big and multi-1-big. Returns the float32
+    codec and the path of its bundle (fp16 leaves, as shipped)."""
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.config import MUSIC_VAE_CONFIG
+    from smd_tpu_torch.scripts.package_generation_bundle import fp16_tree
+    from smd_tpu_torch.utils import io as io_lib
+
+    cfg = MUSIC_VAE_CONFIG["melody-2-big"].model
+    t0 = time.perf_counter()
+    tree = _codec_tree(cfg, seed=23)
+    codec = mv.TrainedMusicVAE(params=tree, config=cfg, device="cuda")
+    cpu = mv.TrainedMusicVAE(params=tree, config=cfg, device="cpu")
+    bf16 = mv.build_musicvae(cfg, tree, dtype=torch.bfloat16, device="cuda")
+    path = os.path.join(tmp, "codec-melody-2-big.pkl")
+    io_lib.save({"params": fp16_tree(codec.model.state_dict()),
+                 "config": cfg}, path)
+    del tree
+    n_params = sum(p.numel() for p in codec.model.parameters())
+    say(f"melody-2-big codec: {n_params / 1e6:.2f} M parameters from a seed "
+        f"(BiLSTM-{cfg.enc_units}, {len(cfg.dec_units)} x "
+        f"{cfg.dec_units[0]} decoder, {cfg.latent_dims}-d latent), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    x = codec_chunks().cuda()
+    n_chunks = x.shape[0]
+    say(f"tokenized {n_chunks} two-bar chunks ({x.shape[1]} steps x "
+        f"{x.shape[2]}) from seeded pieces in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rates = {}
+    with torch.no_grad():
+        for name, model in (("float32", codec.model), ("bf16", bf16)):
+            model.encode(x[:64], gen)       # warm-up
+            (_, mu, sigma), enc_s = _synced(lambda: model.encode(x, gen))
+            model.decode(mu[:64], CODEC_TEMPERATURE, generator=gen)
+            (_, tokens), dec_s = _synced(lambda: model.decode(
+                mu, CODEC_TEMPERATURE, generator=gen))
+            if not (torch.isfinite(mu).all() and torch.isfinite(sigma).all()
+                    and (sigma > 0).all()) or tokens.shape != x.shape[:2]:
+                fail(f"the {name} codec's posterior or tokens are malformed")
+            rates[name] = (mu, tokens)
+            say(f"codec {name} on {n_chunks} chunks: encode {enc_s:.3f} s = "
+                f"{n_chunks / enc_s:.1f} chunks/s, decode (temperature "
+                f"{CODEC_TEMPERATURE}) {dec_s:.3f} s = "
+                f"{n_chunks / dec_s:.1f} chunks/s, on {smi}")
+        mu32 = rates["float32"][0]
+        _codec_bf16_check(codec.model, bf16, x, smi)
+        for batch in (64, n_chunks):
+            ops, busy, span, idle = _profile(lambda: codec.model.decode(
+                mu32[:batch], CODEC_TEMPERATURE, generator=gen),
+                cfg.max_seq_len)
+            say(f"codec float32 decode of {batch} chunks under the "
+                f"profiler: {ops:.1f} device operations a step, device "
+                f"busy {busy:.3f} of {span:.3f} ms a step, idle share "
+                f"{idle:.3f}, on {smi}")
+
+        # The card against the CPU, float32, on CODEC_CPU chunks.
+        xs = x[:CODEC_CPU]
+        mu_c, sigma_c = cpu.model.encoder(xs.cpu())
+        mu_g, sigma_g = codec.model.encoder(xs)
+        noise = torch.zeros_like(mu_c)
+        tf_c = cpu.model(xs.cpu(), noise=noise)[0]
+        tf_g = codec.model(xs, noise=noise.cuda())[0]
+        gumbel = mv.gumbel_noise((CODEC_CPU, cfg.max_seq_len, cfg.depth),
+                                 torch.Generator().manual_seed(31))
+        logits_c, tokens_c = cpu.model.decode(mu_c, CODEC_TEMPERATURE,
+                                              gumbel=gumbel)
+        _, tokens_g = codec.model.decode(mu_c.cuda(), CODEC_TEMPERATURE,
+                                         gumbel=gumbel.cuda())
+    errs = {"mu": _rel_norm(mu_g, mu_c), "sigma": _rel_norm(sigma_g, sigma_c),
+            "teacher-forced logits": _rel_norm(tf_g, tf_c)}
+    for what, err in errs.items():
+        if not err <= CODEC_RTOL:
+            fail(f"codec {what} on the card differs from the CPU's by "
+                 f"{err:.3e} of the norm (limit {CODEC_RTOL})")
+    compared = _tokens_until_close(tokens_g, tokens_c, logits_c, gumbel)
+    if compared < tokens_c.numel() // 4:
+        fail(f"codec decode: only {compared} of {tokens_c.numel()} steps "
+             "before a near tie; the check holds too little")
+    say(f"codec float32 card vs CPU on {CODEC_CPU} chunks: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of the norm (limit {CODEC_RTOL}); free-running tokens equal on "
+        f"{compared} of {tokens_c.numel()} steps (each row up to its first "
+        f"top-two gap below {CODEC_MARGIN}), "
+        f"{int((tokens_g.cpu() == tokens_c).sum())} equal in all")
+    del bf16, cpu, rates
+    torch.cuda.empty_cache()
+
+    for entry in ("melody-16-big", "multi-1-big"):
+        e = MUSIC_VAE_CONFIG[entry]
+        vae = mv.TrainedMusicVAE(params=_codec_tree(e.model, seed=24),
+                                 config=e.model,
+                                 converter=e.data_converter, device="cuda")
+        z = np.random.default_rng(24).standard_normal(
+            (CODEC_HIER, e.model.latent_dims)).astype(np.float32)
+        vae.decode_to_tensors(z)          # warm-up at the same batch
+        tokens, seconds = _synced(lambda: vae.decode_to_tensors(z))
+        seqs = vae.converter.from_tensors(tokens)
+        if tokens.shape != (CODEC_HIER, e.model.max_seq_len) or \
+                tokens.min() < 0 or tokens.max() >= e.model.depth or \
+                len(seqs) != CODEC_HIER:
+            fail(f"{entry} decoded tokens {tokens.shape} in "
+                 f"[{tokens.min()}, {tokens.max()}]")
+        S = e.model.hier_segments
+        n_params = sum(p.numel() for p in vae.model.parameters())
+        say(f"{entry} decode ({S} segments x {e.model.max_seq_len // S} "
+            f"steps, {n_params / 1e6:.1f} M parameters from a seed): "
+            f"{CODEC_HIER} latents in "
+            f"{seconds:.3f} s = {CODEC_HIER / seconds:.1f} chunks/s, "
+            f"{sum(len(s.notes) for s in seqs)} notes, on {smi}")
+        del vae
+        torch.cuda.empty_cache()
+    return codec, path
+
+
+@contextlib.contextmanager
+def _decoded_tokens():
+    """The tokens every TrainedMusicVAE decodes inside the block, in order
+    (its ``decode_to_tensors`` wrapped for the block)."""
+    from smd_tpu_torch.codec.musicvae import TrainedMusicVAE
+    decode, tokens = TrainedMusicVAE.decode_to_tensors, []
+
+    def record(self, z, temperature=1e-3, gumbel=None):
+        tokens.append(decode(self, z, temperature, gumbel))
+        return tokens[-1]
+    TrainedMusicVAE.decode_to_tensors = record
+    try:
+        yield tokens
+    finally:
+        TrainedMusicVAE.decode_to_tensors = decode
+
+
+def _check_midi(path, tokens):
+    """The MIDI file at ``path`` reads back with one note per note-on token
+    of ``tokens`` (chunks, steps), in order."""
+    from smd_tpu_torch.codec import midi_io
+    from smd_tpu_torch.codec.melody import MIN_PITCH
+    pitches = [n.pitch for n in midi_io.read_midi_file(path).notes]
+    expected = [int(t) - 2 + MIN_PITCH for t in np.asarray(tokens).ravel()
+                if t >= 2]
+    if pitches != expected:
+        fail(f"{path} reads back {len(pitches)} notes, its tokens say "
+             f"{len(expected)}")
+    return len(pitches)
+
+
+def _slice_idx(seed):
+    return np.sort(np.random.default_rng(seed).choice(512, CHANNELS,
+                                                      replace=False))
+
+
+def phase_noise_to_midi(tmp, smi, codec):
+    """The fused flagship (seeded weights, bf16) samples 64 requests of
+    32x42 with DPM++-8 through the film and attention kernels; the latents
+    are inverse-transformed to 512 dims and decoded by ``codec`` into 64
+    MIDI files, each read back with the notes its tokens say. Returns the
+    sample's launch counts."""
+    from smd_tpu_torch.codec import midi_io
+    from smd_tpu_torch.codec import song as song_lib
+    from smd_tpu_torch.data import transforms
+    from smd_tpu_torch.sampling import generate
+
+    model, model_fn = _flagship()
+    kw = dict(num_samples=GEN_BATCH, sampling="dpmpp", ddim_steps=GEN_STEPS,
+              collect_steps=0, collect_metrics=False, device="cuda")
+    with torch.no_grad():
+        _fewstep_warmup(model_fn, "dpmpp", dict(ddim_steps=GEN_STEPS))
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        _reset_counts()
+        (samples, _, _), seconds = _synced(lambda: generate.sample(
+            model_fn, _betas(), gen, (SEQ_LEN, CHANNELS), **kw))
+    counts = _counts()
+    _check_launches(f"the DPM++-{GEN_STEPS} sample", counts,
+                    tuple(GEN_STEPS * n for n in per_call_launches("fused")))
+    if samples.shape != (GEN_BATCH, SEQ_LEN, CHANNELS) or \
+            not torch.isfinite(samples).all():
+        fail(f"the DPM++ samples: {tuple(samples.shape)}, not all finite")
+    del model, model_fn
+    latents = transforms.inverse_data_transform(
+        samples.cpu().numpy(), True, None, *DATA_RANGE, _slice_idx(23),
+        out_channels=512, rng=np.random.default_rng(23))
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "noise-to-midi")
+    os.makedirs(out_dir)
+    notes = 0
+    with _decoded_tokens() as tokens:
+        for i in range(GEN_BATCH):
+            song = song_lib.embeddings_to_song(latents[i].astype(np.float64),
+                                               codec, codec.converter)
+            path = os.path.join(out_dir, f"melody_{i:03d}.mid")
+            midi_io.write_midi_file(song.note_sequence, path)
+            notes += _check_midi(path, tokens[-1])
+    seconds_midi = time.perf_counter() - t0
+    say(f"noise -> MIDI: DPM++-{GEN_STEPS} on {GEN_BATCH} requests of "
+        f"{SEQ_LEN}x{CHANNELS} through the fused flagship in {seconds:.3f} s "
+        f"(launches (attention, film, w8a8, flash) {counts}, all attention "
+        f"on the tensor-core kernel); inverse transform to "
+        f"{latents.shape[-1]} dims; {GEN_BATCH} x {SEQ_LEN} = "
+        f"{GEN_BATCH * SEQ_LEN} chunks decoded and {GEN_BATCH} MIDI files "
+        f"written and read back ({notes} notes, each as its tokens say) in "
+        f"{seconds_midi:.3f} s, on {smi}")
+    return counts
+
+
+def phase_codec_clis(tmp, smi, codec_path):
+    """``generate_melodies`` on a bundle of the port's writer (the
+    standard flagship from a seed, 512x42: flash attention) and the codec
+    of phase 23a; then ``generate_song_data`` on 16 seeded MIDI files and
+    ``decode_dataset`` on its records. Returns generate_melodies' launch
+    counts."""
+    from smd_tpu_torch.codec import midi_io
+    from smd_tpu_torch.data import tfrecord_native
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.scripts import (decode_dataset, generate_melodies,
+                                       generate_song_data,
+                                       package_generation_bundle)
+    from smd_tpu_torch.utils import io as io_lib
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+
+    std = get_model("TransformerDDPM", device="cpu", data_channels=CHANNELS,
+                    **FLAGSHIP)
+    load_flax_params(std, random_flax_params(std, seed=0))
+    arch = {k: v for k, v in FLAGSHIP.items() if k != "embed_channels"}
+    bundle = package_generation_bundle.generation_bundle(
+        dict(std.named_parameters()),
+        arch={"architecture": "TransformerDDPM", **arch},
+        schedule={"sigma_begin": 1e-6, "sigma_end": 0.01,
+                  "num_sigmas": SERVE_STEPS, "kind": "linear"},
+        sample_shape=(LONG_SEQ_LEN, CHANNELS), out_channels=512,
+        slice_idx=_slice_idx(24), normalize=True, data_min=DATA_RANGE[0],
+        data_max=DATA_RANGE[1], provenance="chip_smoke phase 23c")
+    del std
+    bundle_path = os.path.join(tmp, "bundle-512.pkl")
+    io_lib.save(bundle, bundle_path)
+
+    out_dir = os.path.join(tmp, "melodies")
+    with _decoded_tokens() as decoded:
+        _reset_counts()
+        paths, seconds = _synced(lambda: generate_melodies.main([
+            "generate_melodies", f"--bundle={bundle_path}",
+            f"--vae_params={codec_path}", f"--output_dir={out_dir}",
+            "--sampler=dpmpp", f"--steps={GEN_STEPS}", f"--n={MELODIES}"]))
+    counts = _counts()
+    expected = tuple(GEN_STEPS * n for n in per_call_launches(
+        "standard", LONG_SEQ_LEN))
+    if counts != expected:
+        fail(f"generate_melodies at S={LONG_SEQ_LEN} launched (attention, "
+             f"film, w8a8, flash) {counts}, expected {expected}")
+    chunks = sum(len(t) for t in decoded)
+    if len(paths) != MELODIES or chunks != MELODIES * LONG_SEQ_LEN:
+        fail(f"generate_melodies wrote {len(paths)} files from {chunks} "
+             f"chunks, expected {MELODIES} from {MELODIES * LONG_SEQ_LEN}")
+    notes = sum(_check_midi(p, t) for p, t in zip(paths, decoded))
+    say(f"generate_melodies --sampler=dpmpp --steps={GEN_STEPS} "
+        f"--n={MELODIES} on a {LONG_SEQ_LEN}x{CHANNELS} standard-layout "
+        f"bundle: {seconds:.3f} s, launches (attention, film, w8a8, flash) "
+        f"{counts}; {chunks} chunks decoded into {len(paths)} MIDI files "
+        f"({notes} notes, each as its tokens say), on {smi}")
+
+    midi_dir = os.path.join(tmp, "midi")
+    os.makedirs(midi_dir)
+    for i, ns in enumerate(_melody_pieces(25, SONG_FILES, bars=16)):
+        midi_io.write_midi_file(ns, os.path.join(midi_dir, f"{i:02d}.mid"))
+    encoded, dec_dir = os.path.join(tmp, "encoded"), os.path.join(tmp, "dec")
+    (count, skipped), enc_s = _synced(lambda: generate_song_data.main([
+        "generate_song_data", f"--input={midi_dir}/*.mid",
+        f"--output={encoded}", f"--vae_params={codec_path}",
+        "--workers=2"]))
+    if count != SONG_FILES or skipped:
+        fail(f"generate_song_data encoded {count} songs, skipped {skipped}")
+    songs = [pickle.loads(r) for name in ("eval", "training")
+             for r in tfrecord_native.iter_records(
+                 os.path.join(encoded, f"{name}_seqs.tfrecord-00000"))]
+    for song in songs:
+        if song.ndim != 3 or song.shape[0] != 3 or song.shape[2] != 512 or \
+                not np.isfinite(song).all():
+            fail(f"an encoded song record is {song.shape}, or not finite")
+    n_chunks = sum(s.shape[1] for s in songs)
+    split, dec_s = _synced(lambda: decode_dataset.main([
+        "decode_dataset", f"--encoded_data={encoded}", f"--output={dec_dir}",
+        f"--vae_params={codec_path}"]))
+    tokens = [pickle.loads(r) for name in ("eval", "train")
+              for r in tfrecord_native.iter_records(
+                  os.path.join(dec_dir, f"decoded-{name}.tfrecord-00000"))]
+    if len(tokens) != len(songs) or any(
+            t.dtype != np.bool_ or t.shape != (s.shape[1] * 32, 90) or
+            not (t.sum(-1) == 1).all() for t, s in zip(tokens, songs)):
+        fail("decode_dataset's records are not one one-hot row per step of "
+             "each song")
+    say(f"generate_song_data on {SONG_FILES} MIDI files: {len(songs)} songs, "
+        f"{n_chunks} chunks in {enc_s:.3f} s (bf16 codec, 2 parser "
+        f"processes); decode_dataset {split} in {dec_s:.3f} s; every record "
+        f"finite and of its shape, on {smi}")
+    return counts
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -2237,6 +2863,18 @@ def main():
             phase_mdn(tmp, smi)
     with Phase("22 MDN at 512 positions"):
         served.extend(phase_mdn_long(smi))
+    t23 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase("23a the codec"):
+            codec, codec_path = phase_codec(tmp, smi)
+        with Phase("23b noise to MIDI"):
+            served.append(phase_noise_to_midi(tmp, smi, codec))
+        del codec
+        torch.cuda.empty_cache()
+        with Phase("23c the codec CLIs"):
+            served.append(phase_codec_clis(tmp, smi, codec_path))
+    say(f"phase 23 (codec and generation) took "
+        f"{time.perf_counter() - t23:.1f} s")
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

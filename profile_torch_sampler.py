@@ -44,19 +44,6 @@ def _serve(model_fn, steps, batch, shape, seed):
                            device="cuda")[0]
 
 
-def _busy_us(intervals):
-    """Length of the union of [start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s >= end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
@@ -133,26 +120,16 @@ def report(prof, steps, wall, smi, what, **meta):
     time by kind and the kernels by device time from a ``torch.profiler``
     trace of ``steps`` steps; the last line one JSON object with them and
     ``meta``."""
+    device, busy, span, idle = chip_smoke.trace_summary(prof)
     per_kernel = defaultdict(lambda: [0, 0.0])
-    intervals = []
-    host = []
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            start, end = evt.time_range.start, evt.time_range.end
-            intervals.append((start, end))
-            per_kernel[evt.name][0] += 1
-            per_kernel[evt.name][1] += end - start
-        else:
-            host.append((evt.time_range.start, evt.time_range.end))
-    if not intervals:
-        raise SystemExit("the profiler recorded no device time")
-    busy = _busy_us(intervals) / 1e6 / steps
-    span = (max(e for _, e in intervals + host) -
-            min(s for s, _ in intervals + host)) / 1e6 / steps
+    for evt in device:
+        per_kernel[evt.name][0] += 1
+        per_kernel[evt.name][1] += evt.time_range.end - evt.time_range.start
+    busy, span = busy / 1e6 / steps, span / 1e6 / steps
     print(f"{smi}; {what}, {steps} steps", flush=True)
     print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
           f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
-          f"idle share {1 - busy / span:.3f}")
+          f"idle share {idle:.3f}")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     by_kind = defaultdict(lambda: [0.0, 0.0])
     for name, (calls, us) in rows:
@@ -171,7 +148,7 @@ def report(prof, steps, wall, smi, what, **meta):
         "wall_ms_per_step": wall * 1e3,
         "profiled_span_ms_per_step": span * 1e3,
         "device_busy_ms_per_step": busy * 1e3,
-        "idle_share": 1 - busy / span,
+        "idle_share": idle,
         "by_kind": {k: {"device_ms_per_step": ms, "calls_per_step": c}
                     for k, (ms, c) in by_kind.items()},
         "kernels": [{"name": n, "calls_per_step": c / steps,

@@ -7,17 +7,20 @@ Nothing here imports JAX or ``smd_tpu``: where the port needs a function of
 the JAX package, even a numpy-only one, it keeps its own copy.
 
 Entry points (``models.get_model``, ``sampling.generate.sample``,
-``python -m smd_tpu_torch.train_ncsn``, ``python -m
-smd_tpu_torch.sample_ncsn``) run on ``cuda`` unless the caller
-passes ``device="cpu"`` (``--device=cpu``); without a GPU and without that
-request they raise (``device.resolve_device``). Each Pallas kernel of
-the JAX package that this port has reached is a CUDA C++ kernel under
+``codec.musicvae.TrainedMusicVAE``, ``python -m smd_tpu_torch.train_ncsn``,
+``python -m smd_tpu_torch.sample_ncsn``, the ``scripts``) run on ``cuda``
+unless the caller passes ``device="cpu"`` (``--device=cpu``); without a GPU
+and without that request they raise (``device.resolve_device``). Each
+Pallas kernel of the JAX package is a CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``) and called
 through ``ctypes``; on a CPU tensor its wrapper takes the plain PyTorch
 version that sits beside it.
 
 Subpackages
 -----------
+- ``smd_tpu_torch.codec``: the MusicVAE codec (encoder, decoder, conductor,
+  ``TrainedMusicVAE``) and the MIDI, NoteSequence, converter and song
+  helpers around it; ``smd_tpu_torch.config`` names its configurations.
 - ``smd_tpu_torch.data``: the TF-free TFRecord writer, reader and input
   pipeline, and numpy copies of the latent transforms.
 - ``smd_tpu_torch.diffusion``: noise schedules, the DDPM loss, denoising and
@@ -32,10 +35,12 @@ Subpackages
   interpolation).
 - ``smd_tpu_torch.training``: the optimizer, train state, train step and
   loop; progressive and consistency distillation.
-- ``smd_tpu_torch.utils``: the Flax params tree -> module weight carrier,
-  checkpoints, logging.
+- ``smd_tpu_torch.utils``: the Flax params tree <-> module weight carrier,
+  checkpoints, the pickle loader of the JAX package's bundles, logging.
 - ``smd_tpu_torch.scripts``: the dataset scripts (``transform_encoded_data``,
-  ``generate_compressed_transform``).
+  ``generate_compressed_transform``) and the codec scripts
+  (``generate_song_data``, ``decode_dataset``,
+  ``package_generation_bundle``, ``generate_melodies``).
 - ``smd_tpu_torch.cli``, ``smd_tpu_torch.train_ncsn``,
   ``smd_tpu_torch.sample_ncsn``: the flags (parsed without absl) and the
   training (and distillation) and sampling entry points.

@@ -11,7 +11,9 @@ TFRecord frames it: the length (uint64, little-endian), its masked CRC32C,
 the payload, the payload's masked CRC32C. The CRCs are computed with numpy
 over all records of one length at once. Reading is
 ``data/tfrecord_native.py``; the boolean ``tokens`` records, a serialized
-TensorFlow tensor, are not ported.
+TensorFlow tensor, are not ported. ``TFRecordWriter`` frames raw payloads
+(the codec scripts' pickled arrays) one record at a time, as
+``tf.io.TFRecordWriter`` does.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Iterable, List
 import numpy as np
 
 __all__ = ["serialize_example", "write_tfrecord", "crc32c",
-           "frame_records"]
+           "frame_records", "TFRecordWriter"]
 
 
 def _crc_table() -> np.ndarray:
@@ -121,3 +123,25 @@ def write_tfrecord(path, examples: Iterable, targets=None,
                 for i, ex in enumerate(examples)]
     with open(path, "wb") as f:
         f.write(frame_records(payloads))
+
+
+class TFRecordWriter:
+    """Writes raw payloads to ``path`` as TFRecords, one ``write`` a record
+    (``tf.io.TFRecordWriter``'s interface, without TensorFlow)."""
+
+    def __init__(self, path):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._file = open(path, "wb")
+
+    def write(self, payload: bytes):
+        self._file.write(frame_records([payload]))
+
+    def close(self):
+        self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -63,38 +63,45 @@ def _compute_dtype(dtype, *tensors) -> torch.dtype:
 
 
 class DenseGeneral(nn.Module):
-    """``flax.linen.DenseGeneral`` over the trailing ``len(in_shape)`` axes."""
+    """``flax.linen.DenseGeneral`` over the trailing ``len(in_shape)`` axes;
+    with ``use_bias=False`` it has no ``bias`` parameter, as in Flax."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
         super().__init__()
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(*self.in_shape,
                                                *self.out_shape))
-        self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(*self.out_shape)) \
+            if use_bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, x, self.kernel, self.bias)
+        params = (self.kernel,) if self.bias is None else \
+            (self.kernel, self.bias)
+        dt = _compute_dtype(self.dtype, x, *params)
         n_in = len(self.in_shape)
         lead = x.shape[:x.dim() - n_in]
         k = self.kernel.to(dt).reshape(math.prod(self.in_shape), -1)
         y = torch.matmul(x.to(dt).reshape(*lead, -1), k)
-        return y.reshape(*lead, *self.out_shape) + self.bias.to(dt)
+        y = y.reshape(*lead, *self.out_shape)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Dense(DenseGeneral):
-    """``flax.linen.Dense``: kernel ``(in, out)``, bias ``(out,)``."""
+    """``flax.linen.Dense``: kernel ``(in, out)``, bias ``(out,)`` unless
+    ``use_bias=False``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__((in_features,), (out_features,), dtype)
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
+        super().__init__((in_features,), (out_features,), dtype, use_bias)
 
 
 class LayerNorm(nn.Module):

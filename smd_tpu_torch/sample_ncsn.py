@@ -98,9 +98,10 @@ def main(argv):
     for flag in ("compute_metrics", "animate"):
         if getattr(FLAGS, flag):
             raise NotImplementedError(
-                f"--{flag} needs the port of eval/metrics.py and "
-                "eval/plots.py (scikit-learn and matplotlib), not ported to "
-                "smd_tpu_torch yet: see ROADMAP.md, queue A, item 10")
+                f"--{flag} needs the sampling metrics (eval/metrics.py, "
+                "eval/midi_metrics.py) and plots (eval/plots.py), not "
+                "ported to smd_tpu_torch yet: see ROADMAP.md, queue A, "
+                "item 10, parts 2-4 and 6")
     device = resolve_device(FLAGS.device)
     log_dir = FLAGS.sampling_dir
     pca, slice_idx, dim_weights = cli.load_transforms_from_flags()

@@ -1,3 +1,7 @@
-"""Dataset scripts of the port, run as ``python -m
-smd_tpu_torch.scripts.<name>``: ``transform_encoded_data`` and
-``generate_compressed_transform``."""
+"""Scripts of the port, run as ``python -m smd_tpu_torch.scripts.<name>``:
+the dataset scripts ``transform_encoded_data`` and
+``generate_compressed_transform``; the codec scripts ``generate_song_data``
+(MIDI -> latent records), ``decode_dataset`` (latent records -> token
+records), ``package_generation_bundle`` (a trained model_dir -> a
+generation bundle in the JAX package's format) and ``generate_melodies``
+(a bundle -> MIDI files)."""

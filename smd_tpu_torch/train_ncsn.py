@@ -128,10 +128,10 @@ def main(argv, step_callback=None):
         return run_distillation(*cli.dataset_from_flags())
     if FLAGS.snapshot_sampling:
         raise NotImplementedError(
-            "--snapshot_sampling (in-training sampling, its plots and "
-            "sampling metrics) is not ported to smd_tpu_torch yet: see "
-            "ROADMAP.md, queue A, items 6 and 10; pass "
-            "--nosnapshot_sampling")
+            "--snapshot_sampling (in-training sampling) needs the sampling "
+            "metrics (eval/metrics.py) and plots (eval/plots.py), not "
+            "ported to smd_tpu_torch yet: see ROADMAP.md, queue A, item 10, "
+            "parts 2, 4 and 6; pass --nosnapshot_sampling")
     if FLAGS.model_parallelism > 1:
         raise NotImplementedError(
             "--model_parallelism > 1 needs a device mesh (DDP and tensor "

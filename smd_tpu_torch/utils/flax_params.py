@@ -8,6 +8,8 @@ parameter ``TransformerEncoder_0.Dense_0.kernel``. The int8 codes of the
 quantized head (``QuantDenseResBlock_k/w1_q``) are buffers, since they
 cannot be parameters. Loading checks that every leaf of the tree is used and
 every parameter and buffer of the module is set, with matching shapes.
+``to_flax_tree`` goes the other way, from a module or its ``{name: tensor}``
+params to a Flax-layout numpy tree.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flatten", "load_flax_params", "random_flax_params"]
+__all__ = ["flatten", "load_flax_params", "random_flax_params",
+           "to_flax_tree"]
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -66,6 +69,34 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+def to_flax_tree(source) -> dict:
+    """``{"params": nested numpy dict}`` of a module's parameters and
+    buffers, or of a ``{dotted name: tensor}`` mapping (a state dict, a
+    ``TrainState``'s params): the inverse of ``load_flax_params``. bf16
+    tensors become float32 arrays (numpy has no bf16); every other dtype is
+    kept.
+    """
+    if isinstance(source, nn.Module):
+        source = {**dict(source.named_parameters()),
+                  **dict(source.named_buffers())}
+    return _unflatten({
+        name: (t.detach().float() if t.dtype == torch.bfloat16
+               else t.detach()).cpu().numpy()
+        for name, t in source.items()})
+
+
+def _unflatten(leaves: dict) -> dict:
+    """{"a.b.c": leaf} -> {"params": nested dict}: ``flatten``'s inverse."""
+    tree: dict = {}
+    for name, leaf in leaves.items():
+        *path, last = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return {"params": tree}
+
+
 def random_flax_params(module: nn.Module, seed: int) -> dict:
     """A Flax-layout numpy tree with the module's shapes, made from ``seed``.
 
@@ -77,7 +108,7 @@ def random_flax_params(module: nn.Module, seed: int) -> dict:
     exercised. Random weights time the same as trained ones.
     """
     rng = np.random.default_rng(seed)
-    tree: dict = {}
+    leaves = {}
     for name, p in module.named_parameters():
         *path, leaf = name.split(".")
         shape = tuple(p.shape)
@@ -91,8 +122,5 @@ def random_flax_params(module: nn.Module, seed: int) -> dict:
             value = 1.0 + 0.1 * rng.normal(size=shape)
         else:
             value = 0.1 * rng.normal(size=shape)
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = value.astype(np.float32)
-    return {"params": tree}
+        leaves[name] = value.astype(np.float32)
+    return _unflatten(leaves)

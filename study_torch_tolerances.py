@@ -21,8 +21,18 @@ reading is repeated with a fault planted in a kernel's output:
   bf16 ulp towards +inf;
 - ``film*1.01`` / ``attn*1.01``: every such output 1% too large;
 
-the faulted gradients at the first three seeds. Prints one ``reading``
-JSON line each, then the card's name and power limit. Needs a CUDA device.
+the faulted gradients at the first three seeds.
+
+    python3 study_torch_tolerances.py --codec
+
+instead sets phase 23's limits on the bf16 codec (``CODEC_BF16_*``): the
+``melody-2-big`` codec from weight seeds 23-25 (phase 23a's is 23), float32
+and bf16, on phase 23a's 2,048 chunks, read by ``codec_bf16_readings``
+clean at draw seeds 37-39 and with each fault of ``chip_smoke.codec_fault``
+at seed 37.
+
+Prints one ``reading`` JSON line each, then the card's name and power
+limit. Needs a CUDA device.
 """
 import argparse
 import contextlib
@@ -144,11 +154,46 @@ def gradients(state, seeds):
                 study(seed, clip_x0, fault)
 
 
+CODEC_FAULTS = ("enc-carry-bf16", "xi+1ulp", "logits-bf16")
+
+
+def codec():
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.config import MUSIC_VAE_CONFIG
+    cfg = MUSIC_VAE_CONFIG["melody-2-big"].model
+    x = cs.codec_chunks().cuda()
+    with torch.no_grad():
+        for seed in (23, 24, 25):
+            tree = cs._codec_tree(cfg, seed)
+            f32 = mv.build_musicvae(cfg, tree, device="cuda")
+            bf16 = mv.build_musicvae(cfg, tree, dtype=torch.bfloat16,
+                                     device="cuda")
+            del tree
+            for draws in (37, 38, 39):
+                gumbel = cs.card_gumbel(
+                    (x.shape[0], cfg.max_seq_len, cfg.depth), draws)
+                ref = cs.codec_reference(f32, x, gumbel)
+                for fault in (None, *CODEC_FAULTS) if draws == 37 \
+                        else (None,):
+                    r = cs.codec_bf16_readings(ref, bf16, x, gumbel, fault)
+                    reading(check="codec_bf16", seed=seed, draws=draws,
+                            fault=fault, **r,
+                            exceeded=cs.codec_bf16_exceeded(r))
+            del f32, bf16
+            torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--grad_seeds", type=int, default=10)
+    parser.add_argument("--codec", action="store_true",
+                        help="read phase 23's bf16 codec check instead")
     args = parser.parse_args()
     smi = cs.phase_device()
+    if args.codec:
+        codec()
+        print(f"on {smi}", flush=True)
+        return
     cs.phase_build()
     chains()
     with tempfile.TemporaryDirectory() as tmp:

@@ -7,6 +7,7 @@ without ``device="cpu"`` raise when there is no GPU.
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,3 +124,29 @@ def test_w8a8_wrapper_takes_no_other_device():
     w_s = torch.empty(64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         w8a8_dense(x, w_q, w_s, None, 0.1)
+
+
+def test_codec_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    from smd_tpu_torch.codec import musicvae
+    from smd_tpu_torch.scripts import (decode_dataset, generate_melodies,
+                                       generate_song_data,
+                                       package_generation_bundle)
+    tiny = musicvae.MusicVAEConfig(latent_dims=4, enc_units=4,
+                                   dec_units=(4,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        musicvae.TrainedMusicVAE(config=tiny)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        musicvae.build_musicvae(tiny)
+    for main, argv in (
+            (generate_song_data.main, [f"--input={tmp_path}/*.mid"]),
+            (decode_dataset.main, [f"--encoded_data={tmp_path}"]),
+            (generate_melodies.main, [f"--bundle={tmp_path}/b.pkl"]),
+            (package_generation_bundle.main,
+             ["--flagfile=configs/ddpm-mel-32seq-512.cfg",
+              f"--dataset={tmp_path}", f"--model_dir={tmp_path}"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["prog", *argv])
+    vae = musicvae.TrainedMusicVAE(config=tiny, device="cpu")
+    z, mu, sigma = vae.encode_tensors([np.eye(90, dtype=np.float32)[
+        np.arange(32) % 90]])
+    assert z.shape == (1, 4) and vae.decode_to_tensors(mu).shape == (1, 32)
