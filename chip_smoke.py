@@ -110,7 +110,10 @@ Phases, one flushed line each with its seconds:
     the same model on the CPU (CPU_RTOL); the checkpoint served through
     ``sample_ncsn``, 1000 DDPM steps on 1000 requests.
 19. NCSN: ``configs/ncsn-mel-1seq-512.cfg`` (DenseNCSN 6 x 2048, DSM, 500
-    sigmas from 15, batch 128) trained 40 steps, the loss falling; 5 SSM
+    sigmas from 15, batch 128) trained 40 steps, the loss falling, with the
+    flagfile's ``--snapshot_sampling`` (ALD on 256 samples, 2 steps a
+    level: ``samples/{init,real,fake}/40.pkl`` written, figures skipped
+    with a log line where matplotlib does not import); 5 SSM
     steps of the same network (a double backward), finite loss and
     gradient norm; ``sample_ncsn --sampling=cas`` at the 500 levels and
     ``--sampling=ald`` at the 500 levels with ``--ld_steps`` cut from 100
@@ -165,6 +168,25 @@ Phases, one flushed line each with its seconds:
     MIDI files and ``decode_dataset`` on its records, every record finite
     and of its shape.
 
+24. codec training and the quality path. (a) ``train_musicvae.main`` at
+    the shipped ``melody-2-big`` width (BiLSTM-2048, 3 x 2048, 512-d) on a
+    seeded corpus of 64 songs from ``make_melody_corpus``: batch 64, 200
+    steps, scheduled sampling 0.2, evaluations every 50 steps, float32 on
+    the card; every ELBO finite, the last 20 steps' mean below the first
+    step's; the float16 artifact loaded by ``TrainedMusicVAE`` on the card;
+    one narrow train step on the card against the CPU with the same draws
+    (CODEC_STEP_RTOL). (b) ``eval_codec.main`` on the artifact over 64
+    chunks: five scores finite and in [0, 1]. (c) DPM++-8 on 1000 requests
+    of 32x42 through the fused flagship at bf16 (film +32, attention +48,
+    all tensor-core) and through the same weights in float32 on the plain
+    versions; ``sample_ncsn.evaluate`` on the bf16 samples against seeded
+    real latents, every stat finite and FD(real, real) below FD(real,
+    samples), the float32 samples' FD beside; ``sample_ncsn
+    --compute_metrics --compute_final_only`` on phase 10's checkpoint.
+    (d) ``sample_audio`` on the artifact and 16 latents (4 pieces of 4
+    chunks) and the prior baseline: 8 WAVs written, none silent
+    (``--noinclude_plots`` where matplotlib does not import).
+
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
 
@@ -174,6 +196,7 @@ CUDA device, or without the repository beside it, it fails and prints no
 result.
 """
 import contextlib
+import glob
 import json
 import logging
 import os
@@ -1732,6 +1755,11 @@ DENSE_STEPS, NCSN_STEPS, SSM_STEPS, TOY_STEPS = 40, 40, 5, 20
 # ALD at the flagfile's 500 levels with --ld_steps cut from 100 to 10:
 # 5,000 model calls in place of 50,000.
 ALD_STEPS = 10
+# The NCSN flagfile's shipped --snapshot_sampling samples --eval_samples
+# (3000) with ALD at --ld_steps (100) at each snapshot, 50,000 model calls;
+# phase 19 cuts it to 256 samples and 2 steps a level (1,000 calls).
+NCSN_SNAPSHOT_SAMPLES = 256
+NCSN_SNAPSHOT = (f"--eval_samples={NCSN_SNAPSHOT_SAMPLES}", "--ld_steps=2")
 # A float32 model on the card against the same model on the CPU (TF32 off):
 # |out_card - out_cpu| <= RTOL * |out_cpu| in norm, and each parameter's
 # gradient likewise. Float32 sums in other orders, and the x5000 noise
@@ -1882,11 +1910,29 @@ def phase_ncsn(tmp, smi):
     10."""
     from smd_tpu_torch import cli
     data = f"{tmp}/flat"
-    base = [f"--dataset={data}", "--nosnapshot_sampling",
-            f"--snapshot_freq={NCSN_STEPS}", "--logging_freq=10"]
+    base = [f"--dataset={data}", f"--snapshot_freq={NCSN_STEPS}",
+            "--logging_freq=10"]
+    t0 = time.perf_counter()
     state, steps, losses = _train(
-        [*base, f"--model_dir={tmp}/ncsn", f"--max_steps={NCSN_STEPS}"],
+        [*base, *NCSN_SNAPSHOT, f"--model_dir={tmp}/ncsn",
+         f"--max_steps={NCSN_STEPS}"],
         window=(10, NCSN_STEPS), flagfile=NCSN_FLAGFILE)
+    train_s = time.perf_counter() - t0
+    snaps = {c: f"{tmp}/ncsn/samples/{c}/{NCSN_STEPS}.pkl"
+             for c in ("init", "real", "fake")}
+    for category, path in snaps.items():
+        if not os.path.exists(path):
+            fail(f"--snapshot_sampling wrote no {path}")
+        with open(path, "rb") as f:
+            snap = pickle.load(f)
+        if snap.shape != (NCSN_SNAPSHOT_SAMPLES, FLAT_WIDTH) or \
+                not np.isfinite(snap).all():
+            fail(f"snapshot {category}: {snap.shape} or not finite")
+    say(f"--snapshot_sampling as shipped, at step {NCSN_STEPS}: ALD "
+        f"{cli.FLAGS.num_sigmas} levels x {cli.FLAGS.ld_steps} steps on "
+        f"{NCSN_SNAPSHOT_SAMPLES} samples (--eval_samples cut from 3000, "
+        f"--ld_steps from 100), samples/{{init,real,fake}}/{NCSN_STEPS}.pkl "
+        f"written; training and snapshot {train_s:.1f} s")
     first, tail = _falls("DenseNCSN dsm", losses)
     say(f"trained float32 {cli.FLAGS.architecture} ({cli.FLAGS.num_layers} "
         f"x {cli.FLAGS.mlp_dims}, batch {cli.FLAGS.batch_size}, "
@@ -1896,8 +1942,8 @@ def phase_ncsn(tmp, smi):
         f"{steps.ms_per_step():.3f} ms/step (wall, steps 10-{NCSN_STEPS}, "
         f"data input included) on {smi}")
     _, ssm, losses = _train(
-        [*base, f"--model_dir={tmp}/ssm", f"--max_steps={SSM_STEPS}",
-         "--loss=ssm"], flagfile=NCSN_FLAGFILE)
+        [*base, *NCSN_SNAPSHOT, f"--model_dir={tmp}/ssm",
+         f"--max_steps={SSM_STEPS}", "--loss=ssm"], flagfile=NCSN_FLAGFILE)
     grads = torch.stack(ssm.grads).float().cpu()
     if not torch.isfinite(grads).all():
         fail(f"non-finite SSM gradient norm: {grads.tolist()}")
@@ -2807,6 +2853,339 @@ def phase_codec_clis(tmp, smi, codec_path):
     return counts
 
 
+
+# Codec training and the quality path (phase 24): the codec trainer at the
+# shipped melody-2-big width (cat-mel_2bar_big) on a seeded synthetic
+# corpus, its artifact evaluated and rendered to audio, and the metric sweep
+# of sample_ncsn --compute_metrics on the fused flagship's samples.
+CODEC_SONGS = 64
+CODEC_STEPS = 200
+CODEC_TRAIN_FLAGS = ("--enc_units=2048", "--dec_units=2048",
+                     "--dec_layers=3", "--latent_dims=512",
+                     "--batch_size=64", f"--steps={CODEC_STEPS}",
+                     "--scheduled_sampling=0.2", "--log_every=50",
+                     "--parse_workers=1", "--seed=24")
+# One train step of a narrow codec on the card against the same step on
+# the CPU (TF32 off), the encoder noise and the scheduled-sampling draws
+# replayed: |p_card - p_cpu| <= CODEC_STEP_RTOL * |p_cpu| for every
+# parameter. Float32 sums in other orders through 32 LSTM steps forward
+# and back; Adam's first step moves each element by about lr, so the
+# learning rate is kept small (1e-4): a gradient element at rounding level
+# whose sign differs moves that element by 2e-4.
+CODEC_STEP_RTOL = 1e-4
+METRIC_REQUESTS = 1000
+# 16 latents as 4 pieces of 4 two-bar chunks: a briefly trained codec may
+# decode a chunk to a rest (one-chunk pieces: 5 of 32 silent on the H100),
+# a piece of four rarely.
+AUDIO_PIECES, AUDIO_CHUNKS = 4, 4
+
+
+class ScalarLog:
+    """A ``SummaryWriter`` that keeps the scalars (``evaluate`` writes each
+    model's metrics there and returns the last model's)."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def scalar(self, tag, value, step):
+        self.scalars[tag] = float(value)
+
+    def image(self, tag, png, step):
+        pass
+
+    def flush(self):
+        pass
+
+
+def _codec_step_vs_cpu():
+    """One train step of a narrow codec (latent 64, 128-unit encoder, 2 x
+    128 decoder, scheduled sampling 0.5) on the card and on the CPU from
+    the same tree, batch and draws; returns the worst parameter's
+    relative difference."""
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.training import musicvae as mvtrain
+    cfg = mv.MusicVAEConfig(latent_dims=64, enc_units=128,
+                            dec_units=(128, 128), free_bits=0.0)
+    tree = _codec_tree(cfg, seed=24)
+    gen = torch.Generator().manual_seed(24)
+    B, T = 16, cfg.max_seq_len
+    batch = torch.randint(0, cfg.depth, (B, T), generator=gen,
+                          dtype=torch.uint8)
+    draws = dict(noise=torch.randn(B, cfg.latent_dims, generator=gen),
+                 gumbel=mv.gumbel_noise((B, T, cfg.depth), gen),
+                 ss_mix=torch.rand(B, T, 1, generator=gen))
+    params = {}
+    for device in ("cpu", "cuda"):
+        model = mv.build_musicvae(cfg, tree, device=device).train()
+        model.requires_grad_(True)
+        opt = mvtrain.make_optimizer(1e-4, 0, CODEC_STEPS)
+        state = opt.init(dict(model.named_parameters()))
+        mvtrain.train_step(model, opt, state, batch.to(device), 0.5,
+                           **{k: v.to(device) for k, v in draws.items()})
+        params[device] = {n: p.detach().cpu()
+                          for n, p in model.named_parameters()}
+    return max(float((params["cuda"][n] - p).norm() / p.norm())
+               for n, p in params["cpu"].items())
+
+
+def phase_codec_training(tmp, smi):
+    """24a: ``train_musicvae.main`` at melody-2-big's width on a seeded
+    corpus, 200 steps on the card, float32, scheduled sampling 0.2; the
+    ELBO finite and falling; the float16 artifact loaded on the card; one
+    narrow train step against the CPU. Returns the artifact's path."""
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.scripts import make_melody_corpus, train_musicvae
+    from smd_tpu_torch.scripts.train_musicvae import load_tensors
+    from smd_tpu_torch.utils import io as io_lib
+    corpus = f"{tmp}/corpus"
+    make_melody_corpus.main(["make_melody_corpus", f"--output_dir={corpus}",
+                             f"--n_songs={CODEC_SONGS}", "--seed=24"])
+    path = f"{tmp}/musicvae-trained.pkl"
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = train_musicvae.main(["train_musicvae", f"--input={corpus}/*.mid",
+                               *CODEC_TRAIN_FLAGS, f"--output={path}",
+                               "--device=cuda"])
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_launches("codec training", _counts(), (0, 0, 0, 0))
+    losses = out["losses"]
+    if losses.shape != (CODEC_STEPS,) or not np.isfinite(losses).all():
+        fail(f"codec training: ELBO not finite or not {CODEC_STEPS} steps")
+    tail = float(losses[-20:].mean())
+    if not tail < float(losses[0]):
+        fail(f"codec training: the last 20 steps' ELBO {tail:.3f} is not "
+             f"below the first step's {float(losses[0]):.3f}")
+    cfg, metrics = out["config"], out["metrics"]
+    codec = mv.TrainedMusicVAE(params=io_lib.load(path), device="cuda")
+    n_params = sum(p.numel() for p in codec.model.parameters())
+    ids = load_tensors(sorted(glob.glob(f"{corpus}/*.mid")), 1)[:64]
+    z, mu, sigma = codec.encode_tensors(
+        [np.eye(cfg.depth, dtype=np.float32)[row] for row in ids])
+    tokens = codec.decode_to_tensors(mu)
+    if not (np.isfinite(mu).all() and np.isfinite(sigma).all()) or \
+            tokens.shape != (64, cfg.max_seq_len):
+        fail("the trained codec's float16 artifact does not encode and "
+             "decode on the card")
+    step_ms = 1e3 * out["step_seconds"] / CODEC_STEPS
+    say(f"train_musicvae melody-2-big ({n_params / 1e6:.1f} M parameters, "
+        f"batch 64, float32, scheduled sampling 0.2 ramped): "
+        f"{metrics['train_chunks']} train / {metrics['eval_chunks']} eval "
+        f"chunks of {CODEC_SONGS} songs; {CODEC_STEPS} steps in "
+        f"{seconds:.1f} s wall (parse, build, evaluations and the artifact "
+        f"included); {step_ms:.2f} ms a step (optimizer steps alone, the "
+        f"card synchronized every 25); peak memory {peak_gb:.2f} GB; ELBO "
+        f"first {float(losses[0]):.2f}, mean of the last 20 {tail:.2f}; "
+        f"held-out round trip {metrics['eval_roundtrip_acc']:.4f}, teacher "
+        f"forced {metrics['eval_teacher_forced_acc']:.4f}; float16 artifact "
+        f"loaded on the card, 64 chunks encoded and decoded; on {smi}")
+    ops, busy, span, idle, products = _codec_step_profile(path)
+    say(f"melody-2-big train step at batch 64 under the profiler (3 steps): "
+        f"{ops:.0f} device operations a step, device busy {busy:.2f} of "
+        f"{span:.2f} ms a step (idle {idle:.3f}), of which the products "
+        f"(cuBLAS GEMM kernels) {products:.2f} ms")
+    rel = _codec_step_vs_cpu()
+    if rel > CODEC_STEP_RTOL:
+        fail(f"a codec train step on the card differs from the CPU's by "
+             f"{rel:.3e} of a parameter's norm, more than {CODEC_STEP_RTOL}")
+    say(f"codec train step (latent 64, 128 units, scheduled sampling 0.5), "
+        f"card vs CPU, same draws: worst parameter {rel:.3e} of its norm "
+        f"(tolerance {CODEC_STEP_RTOL})")
+    return path, corpus
+
+
+def _codec_step_profile(path, steps=3):
+    """A melody-2-big train step at batch 64 under the profiler, from the
+    trained artifact: (device operations a step, device-busy ms a step,
+    profiled ms a step, idle share, products' device ms a step)."""
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.training import musicvae as mvtrain
+    from smd_tpu_torch.utils import io as io_lib
+    bundle = io_lib.load(path)
+    cfg = mv.normalize_config(bundle["config"])
+    model = mv.build_musicvae(cfg, bundle["params"], device="cuda").train()
+    model.requires_grad_(True)
+    opt = mvtrain.make_optimizer(1e-3, 200, CODEC_STEPS)
+    state = opt.init(dict(model.named_parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    batch = torch.randint(0, cfg.depth, (64, cfg.max_seq_len),
+                          generator=gen, device="cuda")
+
+    def run(n):
+        for _ in range(n):
+            mvtrain.train_step(model, opt, state, batch, 0.2, gen)
+
+    run(1)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    device, busy, span, idle = trace_summary(prof)
+    products = _busy_us([(e.time_range.start, e.time_range.end)
+                         for e in device if "gemm" in e.name.lower()])
+    return (len(device) / steps, busy / 1e3 / steps, span / 1e3 / steps,
+            idle, products / 1e3 / steps)
+
+
+def phase_eval_codec(smi, path, corpus):
+    """24b: ``eval_codec.main`` on 24a's artifact over 64 chunks."""
+    from smd_tpu_torch.scripts import eval_codec
+    t0 = time.perf_counter()
+    scores = eval_codec.main(["eval_codec", f"--input={corpus}/*.mid",
+                              f"--vae_params={path}", "--max_chunks=64",
+                              "--device=cuda"])
+    seconds = time.perf_counter() - t0
+    if list(scores) != list(eval_codec.NAMES) or not all(
+            np.isfinite(v) and 0 <= v <= 1 for v in scores.values()):
+        fail(f"eval_codec scores {scores}")
+    say(f"eval_codec on the trained artifact, 64 chunks: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+        + f" in {seconds:.2f} s (artifact load included) on {smi}")
+
+
+def phase_sampling_metrics(tmp, smi):
+    """24c: DPM++-8 on 1000 requests of 32x42 through the fused flagship
+    at bf16 (phase 4's weights), and through the same weights in float32
+    on the plain versions; ``sample_ncsn.evaluate`` on the bf16 samples
+    against seeded real latents; then ``sample_ncsn --compute_metrics
+    --compute_final_only`` on phase 10's checkpoint and records. Returns
+    the launch counts."""
+    from smd_tpu_torch import cli, sample_ncsn
+    from smd_tpu_torch.eval import metrics
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model, model_fn = _flagship()
+    f32 = get_model("TransformerDDPM", device="cuda", data_channels=CHANNELS,
+                    fused_attention=True, fused_head=True, **FLAGSHIP)
+    load_flax_params(f32, random_flax_params(f32, seed=0))
+    f32.eval().use_plain_ops(True)
+
+    def sample(fn):
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        with torch.no_grad():
+            out, _, _ = generate.sample(
+                fn, _betas(), gen, (SEQ_LEN, CHANNELS),
+                num_samples=METRIC_REQUESTS, sampling="dpmpp", ddim_steps=8,
+                collect_steps=0, collect_metrics=False, device="cuda")
+        return out.cpu().numpy().astype(np.float64)
+
+    _fewstep_warmup(model_fn, "dpmpp", {"ddim_steps": 8})
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    samples = sample(model_fn)
+    sample_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_launches("the metric sweep's DPM++-8 samples", counts,
+                    tuple(8 * n for n in per_call_launches("fused")))
+    samples_f32 = sample(lambda x, c: f32(x, c))
+    del model, f32
+    real = np.random.default_rng(24).normal(
+        size=(METRIC_REQUESTS, SEQ_LEN, CHANNELS))
+    cli.FLAGS(["sample_ncsn", "--compute_final_only"])
+    log = ScalarLog()
+    t0 = time.perf_counter()
+    stats = sample_ncsn.evaluate(log, real, samples[None], None, real,
+                                 has_init=False)
+    sweep_s = time.perf_counter() - t0
+    fd_samples = log.scalars["ncsn/frechet_distance"]
+    if not all(np.isfinite(v) for v in [*stats.values(),
+                                        *log.scalars.values()]):
+        fail(f"non-finite metric: {stats} {log.scalars}")
+    if not stats["frechet_dist"] < fd_samples:
+        fail(f"FD(real, real) {stats['frechet_dist']:.4f} is not below "
+             f"FD(real, samples) {fd_samples:.4f}")
+    t0 = time.perf_counter()
+    fd_f32 = metrics.frechet_distance(real, samples_f32)
+    fd_between = metrics.frechet_distance(samples_f32, samples)
+    fd_s = (time.perf_counter() - t0) / 2
+    say(f"DPM++-8 fused bf16, {METRIC_REQUESTS} requests of "
+        f"{SEQ_LEN}x{CHANNELS} in {sample_s:.3f} s (launches {counts}); "
+        f"evaluate (compute_final_only: ncsn, random and real against "
+        f"{METRIC_REQUESTS} seeded real latents, 1344-d) in {sweep_s:.1f} s "
+        f"on the host; ncsn: FD {fd_samples:.4f}, precision "
+        f"{log.scalars['ncsn/precision']:.4f}, recall "
+        f"{log.scalars['ncsn/recall']:.4f}, improved P/R "
+        f"{log.scalars['ncsn/improved_precision']:.4f}/"
+        f"{log.scalars['ncsn/improved_recall']:.4f}, NDB "
+        f"{log.scalars['ncsn/ndb']:.4f}, MMD rbf "
+        f"{log.scalars['ncsn/mmd_rbf']:.3e}; returned (the real baseline's, "
+        f"as the reference): FD {stats['frechet_dist']:.4e}; on {smi}")
+    say(f"FD cost of bf16 serving (random weights, same seeds, DPM++-8): "
+        f"FD(real, bf16 fused) {fd_samples:.4f}, FD(real, float32 plain) "
+        f"{fd_f32:.4f}, FD(float32, bf16) {fd_between:.4f} "
+        f"({fd_s:.2f} s an FD)")
+    return counts
+
+
+def phase_metrics_cli(tmp, smi):
+    """24c: ``sample_ncsn --compute_metrics --compute_final_only`` on
+    phase 10's checkpoint and records (DPM++-8, 128 requests)."""
+    import json as json_lib
+
+    from smd_tpu_torch import sample_ncsn
+    data, out = f"{tmp}/data", f"{tmp}/metrics"
+    t0 = time.perf_counter()
+    _reset_counts()
+    sample_ncsn.main(["sample_ncsn", f"--flagfile={FLAGFILE}",
+                      f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
+                      f"--model_dir={tmp}/fp32", "--sampling=dpmpp",
+                      "--ddim_steps=8", f"--sample_size={EVAL_EXAMPLES}",
+                      f"--sampling_dir={out}", "--compute_metrics",
+                      "--compute_final_only"])
+    seconds = time.perf_counter() - t0
+    _check_launches("sample_ncsn --compute_metrics", _counts(),
+                    per_call_launches("standard"))
+    with open(f"{out}/metrics.json") as f:
+        stats = json_lib.load(f)
+    if not stats or not all(np.isfinite(v) for v in stats.values()):
+        fail(f"sample_ncsn --compute_metrics wrote {stats}")
+    say(f"sample_ncsn --compute_metrics --compute_final_only on phase 10's "
+        f"checkpoint, {EVAL_EXAMPLES} requests DPM++-8: {seconds:.1f} s "
+        f"(load, sampling and the sweep); metrics.json finite "
+        f"({len(stats)} stats) on {smi}")
+
+
+def phase_audio(tmp, smi, path):
+    """24d: ``sample_audio`` on 24a's artifact and 16 latents (4 pieces of
+    4 chunks): WAVs written and not silent."""
+    from scipy.io import wavfile
+
+    from smd_tpu_torch.eval import plots
+    from smd_tpu_torch.scripts import sample_audio
+    from smd_tpu_torch.utils import io as io_lib
+    latents = np.random.default_rng(24).normal(
+        size=(AUDIO_PIECES, AUDIO_CHUNKS, 512))
+    io_lib.save(latents.astype(np.float32), f"{tmp}/audio-in/generated.pkl")
+    out = f"{tmp}/audio"
+    plot_flag = "--include_plots" if plots.available() \
+        else "--noinclude_plots"
+    t0 = time.perf_counter()
+    rendered = sample_audio.main([
+        "sample_audio", f"--input={tmp}/audio-in", f"--output={out}",
+        f"--vae_params={path}", f"--n_synth={AUDIO_PIECES}", plot_flag,
+        "--device=cuda"])
+    seconds = time.perf_counter() - t0
+    if len(rendered) != 2 * AUDIO_PIECES:
+        fail(f"sample_audio rendered {len(rendered)} files")
+    peaks = []
+    for base in rendered:
+        _, pcm = wavfile.read(f"{base}.wav")
+        peaks.append(int(np.abs(pcm).max()))
+    if min(peaks) < 100:
+        fail(f"sample_audio wrote a silent WAV (peaks {peaks})")
+    say(f"sample_audio: {AUDIO_PIECES} pieces of {AUDIO_CHUNKS} latents "
+        f"and the prior baseline decoded on the card and rendered "
+        f"({len(rendered)} WAVs, 44.1 "
+        f"kHz, peaks {min(peaks)}-{max(peaks)} of 32767; {plot_flag}, "
+        f"matplotlib {'imports' if plots.available() else 'absent'}) in "
+        f"{seconds:.1f} s on {smi}")
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -2861,20 +3240,34 @@ def main():
             phase_conv_toy(tmp, smi)
         with Phase("21 MDN"):
             phase_mdn(tmp, smi)
-    with Phase("22 MDN at 512 positions"):
-        served.extend(phase_mdn_long(smi))
-    t23 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        with Phase("23a the codec"):
-            codec, codec_path = phase_codec(tmp, smi)
-        with Phase("23b noise to MIDI"):
-            served.append(phase_noise_to_midi(tmp, smi, codec))
-        del codec
+        with Phase("22 MDN at 512 positions"):
+            served.extend(phase_mdn_long(smi))
+        t23 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp23:
+            with Phase("23a the codec"):
+                codec, codec_path = phase_codec(tmp23, smi)
+            with Phase("23b noise to MIDI"):
+                served.append(phase_noise_to_midi(tmp23, smi, codec))
+            del codec
+            torch.cuda.empty_cache()
+            with Phase("23c the codec CLIs"):
+                served.append(phase_codec_clis(tmp23, smi, codec_path))
+        say(f"phase 23 (codec and generation) took "
+            f"{time.perf_counter() - t23:.1f} s")
         torch.cuda.empty_cache()
-        with Phase("23c the codec CLIs"):
-            served.append(phase_codec_clis(tmp, smi, codec_path))
-    say(f"phase 23 (codec and generation) took "
-        f"{time.perf_counter() - t23:.1f} s")
+        t24 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp24:
+            with Phase("24a codec training"):
+                trained, corpus = phase_codec_training(tmp24, smi)
+            with Phase("24b eval_codec"):
+                phase_eval_codec(smi, trained, corpus)
+            with Phase("24c sampling metrics"):
+                served.append(phase_sampling_metrics(tmp24, smi))
+                phase_metrics_cli(tmp, smi)
+            with Phase("24d audio"):
+                phase_audio(tmp24, smi, trained)
+        say(f"phase 24 (codec training, metrics, audio) took "
+            f"{time.perf_counter() - t24:.1f} s")
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -18,8 +18,9 @@ params tree (the shipped ``checkpoints/musicvae-*.pkl`` bundles) loads with
 Each LSTM cell computes what ``flax.linen.OptimizedLSTMCell`` computes. The
 time loops are Python loops over one step each (JAX scans them); the four
 gates' kernels are put side by side once per call, not once per step.
-Training (``elbo_loss``, scheduled sampling) is not ported yet: see
-``ROADMAP.md``, queue A, item 10, part 1.
+Training: ``elbo_loss`` and scheduled sampling in the teacher-forced
+decoder, whose draws replay through ``gumbel=`` and ``ss_mix=`` as the
+sampled decode's do through ``gumbel=``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from smd_tpu_torch.models.layers import Dense
 __all__ = ["MusicVAEConfig", "MusicVAE", "TrainedMusicVAE", "LSTMCell",
            "Encoder", "Decoder", "DecoderCell", "Conductor", "ConductorCell",
            "normalize_config", "normalize_params", "MEL_2BAR_BIG",
-           "MEL_16BAR_HIERDEC", "gumbel_noise"]
+           "MEL_16BAR_HIERDEC", "gumbel_noise", "elbo_loss"]
 
 log = logging.getLogger(__name__)
 
@@ -325,6 +326,15 @@ class Decoder(nn.Module):
     gumbel)`` (what ``jax.random.categorical`` computes) and returns
     (logits, samples (B, L)). ``gumbel`` (B, L, depth) replaces the draws,
     which otherwise come from ``generator``.
+
+    Scheduled sampling (``ss_prob > 0``, teacher forcing only): after each
+    step the next token is, with probability ``ss_prob``, the one-hot of a
+    draw from that step's logits at ``temperature`` in place of the target
+    (JAX's ``DecoderCell``). ``gumbel`` (B, L, depth) are the draws' Gumbel
+    noise and ``ss_mix`` (B, L, 1) the per-step choice: bools (True feeds
+    the draw) or uniforms in [0, 1), a draw fed where ``u < ss_prob``, as
+    ``jax.random.bernoulli`` decides; what is not given comes from
+    ``generator``.
     """
 
     def __init__(self, config: MusicVAEConfig,
@@ -350,13 +360,9 @@ class Decoder(nn.Module):
                 temperature: float = 1e-3, length: Optional[int] = None,
                 ss_prob: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None):
+                gumbel: Optional[torch.Tensor] = None,
+                ss_mix: Optional[torch.Tensor] = None):
         cfg = self.config
-        if ss_prob:
-            raise NotImplementedError(
-                "scheduled sampling (ss_prob > 0) belongs to codec training, "
-                "not ported to smd_tpu_torch yet: see ROADMAP.md, queue A, "
-                "item 10, part 1")
         B = z.shape[0]
         if length is None:
             length = targets.shape[1] if targets is not None \
@@ -369,14 +375,23 @@ class Decoder(nn.Module):
         # then the layer below's ``h``.
         weights = [cell.weights(self.dtype, carry[1].dtype)
                    for cell, carry in zip(layers, carries)]
-        if targets is None:
+        sampled = targets is None or ss_prob > 0
+        if sampled:
             if gumbel is None:
                 gumbel = gumbel_noise((B, length, cfg.depth), generator,
                                       z.device)
             temp = torch.tensor(max(float(temperature), 1e-6),
                                 dtype=torch.float32, device=z.device)
-        else:
+        if targets is not None:
             targets = targets.to(self.dtype)
+            if ss_prob > 0:
+                if ss_mix is None:
+                    ss_mix = torch.rand((B, length, 1), generator=generator,
+                                        device=z.device)
+                if ss_mix.dtype != torch.bool:
+                    ss_mix = ss_mix < torch.tensor(ss_prob,
+                                                   dtype=torch.float32)
+                ss_mix = ss_mix.to(z.device)
         logits, samples = [], []
         for t in range(length):
             x = torch.cat([token, z], dim=-1)
@@ -387,12 +402,17 @@ class Decoder(nn.Module):
                 x = carries[i][1]
             step_logits = self.cell.logits(x.float())
             logits.append(step_logits)
-            if targets is not None:
-                token = targets[:, t]
-            else:
+            if sampled:
                 idx = torch.argmax(step_logits / temp + gumbel[:, t], dim=-1)
+                draw = nn.functional.one_hot(idx, cfg.depth).to(
+                    x.dtype if targets is None else targets.dtype)
+            if targets is None:
                 samples.append(idx)
-                token = nn.functional.one_hot(idx, cfg.depth).to(x.dtype)
+                token = draw
+            elif ss_prob > 0:
+                token = torch.where(ss_mix[:, t], draw, targets[:, t])
+            else:
+                token = targets[:, t]
         logits = torch.stack(logits, dim=1)
         if targets is not None:
             return logits
@@ -515,22 +535,50 @@ class MusicVAE(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, ss_prob: float = 0.0):
+                noise: Optional[torch.Tensor] = None, ss_prob: float = 0.0,
+                gumbel: Optional[torch.Tensor] = None,
+                ss_mix: Optional[torch.Tensor] = None):
         """Teacher-forced reconstruction logits and the posterior
-        (logits, mu, sigma)."""
+        (logits, mu, sigma).
+
+        ``ss_prob``: scheduled sampling, each feedback token replaced with
+        that chance by a draw at temperature 1 (see ``Decoder``), whose
+        ``gumbel`` and ``ss_mix`` are (B·S, T/S, ·) for hierarchical
+        configs. The draws come from ``generator`` after the encoder's
+        noise unless given."""
         z, mu, sigma = self.encode(x, generator, noise)
         cfg = self.config
+        draws = dict(ss_prob=ss_prob, temperature=1.0, generator=generator,
+                     gumbel=gumbel, ss_mix=ss_mix)
         if cfg.hier_segments > 0:
             S = cfg.hier_segments
             B, T, depth = x.shape
             flat = self.conductor(z).reshape(B * S, cfg.latent_dims)
             logits = self.decoder(flat, targets=x.reshape(B * S, T // S,
-                                                          depth),
-                                  ss_prob=ss_prob)
+                                                          depth), **draws)
             logits = logits.reshape(B, T, cfg.depth)
         else:
-            logits = self.decoder(z, targets=x, ss_prob=ss_prob)
+            logits = self.decoder(z, targets=x, **draws)
         return logits, mu, sigma
+
+
+def elbo_loss(logits: torch.Tensor, targets: torch.Tensor, mu: torch.Tensor,
+              sigma: torch.Tensor, free_bits: float = 0.0, beta: float = 0.2):
+    """Negative ELBO: the categorical NLL summed over steps plus beta times
+    the KL less the free bits (``free_bits·ln 2`` nats, clipped at 0),
+    averaged over the batch. Returns (loss, {"rec", "kl"}), the batch means
+    of the NLL and of the whole KL."""
+    labels = targets.argmax(-1)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    rec = -torch.gather(log_probs, -1, labels[..., None]).squeeze(-1).sum(-1)
+    var = torch.square(sigma)
+    kl = 0.5 * torch.sum(torch.square(mu) + var - 1 - torch.log(var + 1e-12),
+                         dim=-1)
+    # float32 arithmetic, as jnp.log(2.0) times a weakly typed float.
+    free_nats = float(np.float32(free_bits) * np.float32(np.log(2.0)))
+    kl_cost = torch.clamp_min(kl - free_nats, 0.0)
+    return torch.mean(rec + beta * kl_cost), {"rec": torch.mean(rec),
+                                              "kl": torch.mean(kl)}
 
 
 def build_musicvae(config: MusicVAEConfig, params=None, seed: int = 0,

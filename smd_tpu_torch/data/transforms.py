@@ -129,9 +129,50 @@ class PCATransform:
         return self.scaler.inverse_transform(self.pca.inverse_transform(batch))
 
 
+class StandardScaler:
+    """Per-feature standardization, scikit-learn's ``StandardScaler``:
+    mean and population standard deviation (1 where it is 0)."""
+
+    def fit(self, data):
+        data = np.asarray(data, np.float64)
+        self.mean_ = data.mean(axis=0)
+        scale = data.std(axis=0)
+        self.scale_ = np.where(scale == 0, 1.0, scale)
+        return self
+
+    def transform(self, batch):
+        return (np.asarray(batch) - self.mean_) / self.scale_
+
+    def inverse_transform(self, batch):
+        return np.asarray(batch) * self.scale_ + self.mean_
+
+
+class PCA:
+    """Principal components by a full SVD of the centered data, each
+    component's sign fixed so its largest entry is positive (scikit-learn's
+    ``svd_flip`` on the components)."""
+
+    def __init__(self, n_components):
+        self.n_components = n_components
+
+    def fit(self, data):
+        data = np.asarray(data, np.float64)
+        self.mean_ = data.mean(axis=0)
+        _, _, vt = np.linalg.svd(data - self.mean_, full_matrices=False)
+        signs = np.sign(vt[np.arange(len(vt)), np.abs(vt).argmax(axis=1)])
+        self.components_ = (vt * signs[:, None])[:self.n_components]
+        return self
+
+    def transform(self, batch):
+        return (np.asarray(batch) - self.mean_) @ self.components_.T
+
+    def inverse_transform(self, batch):
+        return np.asarray(batch) @ self.components_ + self.mean_
+
+
 def fit_pca(data, n_components=42):
-    from sklearn.decomposition import PCA
-    from sklearn.preprocessing import StandardScaler
+    """StandardScaler then PCA, in numpy (the JAX package fits them with
+    scikit-learn; its pickles of those load where scikit-learn does)."""
     scaler = StandardScaler().fit(data)
-    pca = PCA(n_components=n_components).fit(scaler.transform(data))
+    pca = PCA(n_components).fit(scaler.transform(data))
     return PCATransform(scaler, pca)

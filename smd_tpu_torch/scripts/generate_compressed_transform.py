@@ -8,7 +8,7 @@ Reads up to ``--max_vectors`` non-zero latents (z, and the encoder's
 sigma) from ``training_seqs.tfrecord-*`` without TensorFlow, logs the
 share of variance the top ``--keep_dims`` dimensions explain, and pickles
 ``NAME.pkl`` for the training CLIs' ``--slice_ckpt`` (the kept indices,
-int64), ``--pca_ckpt`` (StandardScaler + PCA; needs scikit-learn) or
+int64), ``--pca_ckpt`` (StandardScaler + PCA, fitted in numpy) or
 ``--dim_weights_ckpt`` (1 / mean sigma per dimension).
 """
 from __future__ import annotations

@@ -12,8 +12,15 @@ objective (``--loss=ddpm``) or on denoising or sliced score matching
 the latest DDPM checkpoint for few-step sampling
 (``--distill_mode=progressive``, ``consistency`` or ``ct``) into
 ``MODEL_DIR/distilled/`` bundles, which ``python -m
-smd_tpu_torch.sample_ncsn`` serves. ``--snapshot_sampling`` is not ported
-yet and raises.
+smd_tpu_torch.sample_ncsn`` serves. ``--snapshot_sampling`` (on in the
+NCSN and toy flagfiles) samples ``--eval_samples`` at each snapshot with
+the EMA params: the Langevin samplers' per-level statistics go to
+``MODEL_DIR/sampling_epoch{n}``, the ``vae`` problem's init, real and
+generated latents (inverse transformed) to
+``MODEL_DIR/samples/{init,real,fake}/{step}.pkl``, and the scatter plots
+and score fields of the ``toy`` problem, and the ``vae`` tiles, to
+TensorBoard where matplotlib imports (skipped with a log line where it
+does not).
 """
 from __future__ import annotations
 
@@ -29,6 +36,95 @@ cli.define_common_flags()
 cli.define_diffusion_flags()
 
 log = logging.getLogger("smd_tpu_torch")
+
+
+def snapshot_sampling_callback(model, sigmas, train_ds, eval_ds, writer,
+                               output_dir):
+    """In-training sampling and logging (the JAX package's, reference
+    ``train_ncsn.py:405-486``), for ``training.loop.run_loop``'s
+    ``snapshot_callback``. Each snapshot samples with a generator seeded
+    ``--seed + sampling_step + 1`` on the model's device, through the model
+    with the EMA params (``state.sampling_params``)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from smd_tpu_torch.data import transforms
+    from smd_tpu_torch.eval import plots
+    from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.utils import io as io_lib
+    from smd_tpu_torch.utils.logging import log_sampling_metrics
+
+    pca, slice_idx, dim_weights = cli.load_transforms_from_flags()
+    device = next(model.parameters()).device
+    figures = plots.available()
+    if not figures:
+        log.info("matplotlib does not import: the snapshot images are "
+                 "skipped; the samples and metrics are written")
+
+    def callback(state, eval_metrics, sampling_step):
+        params = state.sampling_params
+
+        def model_fn(x, cond):
+            return torch.func.functional_call(model, params, (x, cond))
+
+        generator = torch.Generator(device=device).manual_seed(
+            FLAGS.seed + sampling_step + 1)
+        input_shape = tuple(int(s) for s in FLAGS.data_shape)
+        if FLAGS.slice_ckpt:
+            input_shape = (*input_shape[:-1], len(slice_idx))
+        with torch.no_grad():
+            generated, collection, ld_metrics = generate.sample(
+                model_fn, sigmas, generator, input_shape,
+                num_samples=FLAGS.eval_samples, sampling=FLAGS.sampling,
+                epsilon=FLAGS.ld_epsilon, steps=FLAGS.ld_steps,
+                denoise=FLAGS.denoise, ddim_steps=FLAGS.ddim_steps,
+                ddim_eta=FLAGS.ddim_eta, device=device)
+        if ld_metrics is not None:
+            log_sampling_metrics(ld_metrics, sampling_step, output_dir)
+
+        init = collection[0].cpu().numpy()
+        generated = generated.cpu().numpy()
+        real = eval_ds.take_examples(FLAGS.eval_samples)
+
+        inv = functools.partial(transforms.inverse_data_transform,
+                                normalize_flag=FLAGS.normalize, pca=pca,
+                                data_min=train_ds.min, data_max=train_ds.max,
+                                slice_idx=slice_idx, dim_weights=dim_weights)
+        real_t = transforms.inverse_data_transform(
+            real, FLAGS.normalize, pca, eval_ds.min, eval_ds.max, slice_idx,
+            dim_weights)
+        init_t, generated_t = inv(init), inv(generated)
+
+        step = int(state.step)
+        if FLAGS.problem == "toy" and figures:
+            for tag, samples in (("init", init_t), ("real", real_t),
+                                 ("fake", generated_t)):
+                writer.image(tag, plots.scatter_2d(samples,
+                                                   scale=8).getvalue(), step)
+            if len(input_shape) == 1 and FLAGS.sampling != "ddpm":
+                for sigma in sigmas.cpu().numpy()[:: max(
+                        1, len(sigmas) // 8)]:
+                    buf = plots.score_field_2d(model_fn, sigma, scale=8,
+                                               device=device)
+                    writer.image(f"score_sigma={sigma:.4f}", buf.getvalue(),
+                                 step)
+        elif FLAGS.problem == "vae":
+            if figures:
+                shape = (input_shape[0], 32) if len(input_shape) > 1 \
+                    else (16, 32)
+                writer.image("fake", plots.image_tiles(
+                    generated_t[:10].reshape(10, -1)[:, :shape[0] *
+                                                     shape[1]],
+                    shape=shape).getvalue(), step)
+            for category, samples in (("init", init_t), ("real", real_t),
+                                      ("fake", generated_t)):
+                io_lib.save(samples,
+                            f"{output_dir}/samples/{category}/{step}.pkl")
+        writer.flush()
+
+    return callback
 
 
 def run_distillation(train_ds, eval_ds):
@@ -126,12 +222,6 @@ def main(argv, step_callback=None):
     resolve_device(FLAGS.device)
     if FLAGS.distill:
         return run_distillation(*cli.dataset_from_flags())
-    if FLAGS.snapshot_sampling:
-        raise NotImplementedError(
-            "--snapshot_sampling (in-training sampling) needs the sampling "
-            "metrics (eval/metrics.py) and plots (eval/plots.py), not "
-            "ported to smd_tpu_torch yet: see ROADMAP.md, queue A, item 10, "
-            "parts 2, 4 and 6; pass --nosnapshot_sampling")
     if FLAGS.model_parallelism > 1:
         raise NotImplementedError(
             "--model_parallelism > 1 needs a device mesh (DDP and tensor "
@@ -144,6 +234,12 @@ def main(argv, step_callback=None):
     input_shape = sample_batch.shape[1:]
     model = cli.model_from_flags(input_shape[-1])
     config = cli.train_config_from_flags()
+    callback = None
+    if FLAGS.snapshot_sampling:
+        from smd_tpu_torch.utils.logging import SummaryWriter
+        callback = snapshot_sampling_callback(
+            model, sigmas, train_ds, eval_ds,
+            SummaryWriter(f"{FLAGS.model_dir}/eval"), FLAGS.model_dir)
     return trainer.fit(model, sigmas,
                        train_data=lambda: iter(train_ds),
                        eval_data=lambda: iter(eval_ds),
@@ -151,6 +247,7 @@ def main(argv, step_callback=None):
                        config=config,
                        model_dir=FLAGS.model_dir,
                        seed=FLAGS.seed,
+                       snapshot_callback=callback,
                        step_callback=step_callback)
 
 

@@ -62,16 +62,19 @@ def stepped_exponential_schedule(base_lr: float, interval: int, gamma: float,
 
 
 def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
-                                 decay_steps: int) -> Callable[[int], float]:
-    """count -> lr, the schedule of every distillation driver of the JAX
-    package, optax's ``warmup_cosine_decay_schedule(0.0, peak_value,
-    warmup_steps, decay_steps, end_value=peak_value * 0.01)``, in its
+                                 decay_steps: int, end_fraction: float = 0.01
+                                 ) -> Callable[[int], float]:
+    """count -> lr, optax's ``warmup_cosine_decay_schedule(0.0, peak_value,
+    warmup_steps, decay_steps, end_value=peak_value * end_fraction)`` in its
     float32 arithmetic: linear from 0 to ``peak_value`` over
-    ``warmup_steps``, then a cosine decay to a hundredth of it at
-    ``decay_steps`` (warmup included), constant after."""
+    ``warmup_steps``, then a cosine decay to ``end_fraction`` of it at
+    ``decay_steps`` (warmup included), constant after. The JAX package's
+    distillation trainers end at 0.01 (the default), its codec trainer
+    (``scripts/train_musicvae.py``) at 0.02."""
     f32 = np.float32
-    # optax's end_value / peak_value, which need not round to 0.01.
-    alpha = 0.0 if peak_value == 0.0 else peak_value * 0.01 / peak_value
+    # optax's end_value / peak_value, which need not round to end_fraction.
+    alpha = 0.0 if peak_value == 0.0 else \
+        peak_value * end_fraction / peak_value
     cosine_steps = decay_steps - warmup_steps
     if not cosine_steps > 0:
         raise ValueError("The cosine_decay_schedule requires positive "

@@ -1,7 +1,7 @@
 """Metric logging: stdout and TensorBoard (port of
 ``smd_tpu/utils/logging.py``).
 
-``SummaryWriter`` writes TensorBoard scalars through
+``SummaryWriter`` writes TensorBoard scalars and images through
 ``torch.utils.tensorboard`` when it imports (it needs the ``tensorboard``
 package); without it the writer does nothing and the metrics go to the log
 alone, as the JAX package's does without TensorFlow.
@@ -30,6 +30,18 @@ class SummaryWriter:
     def scalar(self, tag, value, step):
         if self._writer is not None:
             self._writer.add_scalar(tag, float(value), int(step))
+
+    def image(self, tag, png_bytes, step):
+        """A PNG image (the bytes ``eval.plots`` returns); decoded with
+        Pillow, which matplotlib brings."""
+        if self._writer is not None:
+            import io
+
+            import numpy as np
+            from PIL import Image
+            image = np.asarray(Image.open(io.BytesIO(png_bytes)).convert(
+                "RGBA"))
+            self._writer.add_image(tag, image, int(step), dataformats="HWC")
 
     def flush(self):
         if self._writer is not None:

@@ -154,9 +154,10 @@ def test_train_ncsn_needs_a_gpu_or_device_cpu(tmp_path, monkeypatch):
     for extra in ([], ["--distill"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_ncsn.main([*base, *extra])
-    # --distill runs (tests/test_torch_distill.py); these are not ported.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_ncsn.main([*base, "--snapshot_sampling", "--device=cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ncsn.main([*base, "--snapshot_sampling"])
+    # --distill and --snapshot_sampling run (tests/test_torch_distill.py,
+    # tests/test_torch_metrics.py); this is not ported.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_ncsn.main([*base, "--model_parallelism=2", "--device=cpu"])
 

@@ -248,3 +248,21 @@ def test_numpy_copies_match_the_jax_package():
     st = transforms.SliceTransform.fit(rng(5).normal(size=(50, 12)), keep=4)
     assert np.array_equal(st.indices, jtransforms.SliceTransform.fit(
         rng(5).normal(size=(50, 12)), keep=4).indices)
+
+
+@pytest.mark.parametrize("shape", [(2000, 64), (100, 40)])
+def test_fit_pca_matches_the_jax_package(shape):
+    """The port fits StandardScaler + PCA in numpy (an exact SVD); the JAX
+    package with scikit-learn, which takes the covariance's
+    eigendecomposition for tall data and a full SVD for small data: the
+    same components, signs included, to rounding."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=shape) @ rng.normal(size=(shape[1], shape[1])) \
+        * 0.1 + rng.normal(size=shape[1])
+    ours, ref = transforms.fit_pca(x, 12), jtransforms.fit_pca(x, 12)
+    y, y_ref = ours.transform(x), ref.transform(x)
+    np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-10 * np.abs(
+        y_ref).max())
+    np.testing.assert_allclose(ours.inverse_transform(y),
+                               ref.inverse_transform(y_ref), rtol=0,
+                               atol=1e-10 * np.abs(x).max())

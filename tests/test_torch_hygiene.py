@@ -1,7 +1,8 @@
 """The port stands alone and keeps to the device rule.
 
 ``smd_tpu_torch/``, ``chip_smoke.py`` and the card scripts beside it import
-nothing of JAX, its ecosystem or the JAX package; entry points called
+nothing of JAX, its ecosystem, scikit-learn or the JAX package (the card's
+machine has none of them); entry points called
 without ``device="cpu"`` raise when there is no GPU.
 """
 import ast
@@ -18,7 +19,7 @@ from smd_tpu_torch.sampling import generate
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "absl",
-             "smd_tpu")
+             "sklearn", "smd_tpu")
 
 
 def _port_files():
@@ -150,3 +151,14 @@ def test_codec_entry_points_raise_without_gpu(no_gpu, tmp_path):
     z, mu, sigma = vae.encode_tensors([np.eye(90, dtype=np.float32)[
         np.arange(32) % 90]])
     assert z.shape == (1, 4) and vae.decode_to_tensors(mu).shape == (1, 32)
+
+
+def test_codec_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    from smd_tpu_torch.scripts import eval_codec, sample_audio, train_musicvae
+    for main, argv in (
+            (train_musicvae.main, [f"--input={tmp_path}/*.mid"]),
+            (eval_codec.main, [f"--input={tmp_path}/*.mid"]),
+            (sample_audio.main, [f"--input={tmp_path}",
+                                 "--noinclude_plots"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["prog", *argv])

@@ -6,8 +6,8 @@ smd_tpu_torch.sample_ncsn`` (``--device=cpu``, tiny widths, a few steps)
 on each flagfile the slice ports: as subprocesses for
 ``configs/mixture/mixture-single-2.cfg`` (ToyNCSN, SSM with continuous
 noise, ALD) and ``configs/ncsn-mel-1seq-512.cfg`` (DenseNCSN, DSM, CAS),
-in-process for the other four. ``--nosnapshot_sampling`` is passed, since
-in-training sampling is not ported (``ROADMAP.md`` A.10). Then
+in-process for the other four. ``--nosnapshot_sampling`` is passed to
+keep these runs short (``test_torch_metrics.py`` runs the snapshots). Then
 ``python -m smd_tpu_torch.scripts.transform_encoded_data`` (``flatten``,
 ``sequences``) and ``generate_compressed_transform`` (``slice``,
 ``dim_weights``) write what ``scripts/`` writes from the same encoded

@@ -8,6 +8,7 @@ every sampler of ``sample_ncsn`` on the checkpoint and the bundles,
 ``--infill`` (the 8 edge latents held), ``--interpolate``, the flushed
 pickles and the error messages of the JAX CLI.
 """
+import json
 import os
 import pickle
 import subprocess
@@ -129,9 +130,14 @@ def test_distill_and_sample_clis_on_cpu(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="consistency_sampling_steps=5"):
         sample_ncsn.main(["sample_ncsn", *base, "--sampling=consistency",
                           "--consistency_sampling_steps=5"])
-    for flag in ("--compute_metrics", "--animate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sample_ncsn.main(["sample_ncsn", *base, flag])
+    # --compute_metrics writes the sweep's stats; --animate draws only 2-D
+    # data, so on 32x42 latents it writes no animation.
+    sample_ncsn.main(["sample_ncsn", *base, "--sampling=consistency",
+                      "--consistency_sampling_steps=1", "--compute_metrics",
+                      "--compute_final_only", "--animate"])
+    stats = json.loads((out / "metrics.json").read_text())
+    assert len(stats) == 10 and all(np.isfinite(v) for v in stats.values())
+    assert not (out / "animated.gif").exists()
 
 
 def test_sample_ncsn_needs_a_gpu_or_device_cpu(tmp_path, monkeypatch):
