@@ -187,6 +187,23 @@ Phases, one flushed line each with its seconds:
     chunks) and the prior baseline: 8 WAVs written, none silent
     (``--noinclude_plots`` where matplotlib does not import).
 
+25. distributed training. (a) ``dryrun.entry()``, the flagship's forward
+    on 8x32x42; ``train_ncsn.main`` on ``configs/ddpm-mel-32seq-512.cfg``
+    at full width for 20 steps under ``RANK=0 WORLD_SIZE=1`` (an NCCL group
+    of one) and without them: every parameter bit-equal; the group
+    destroyed. (b) The data axis on 2 ranks (processes): the fused
+    flagship at bf16, global batch 64 split 32 + 32, 3 steps, each rank's
+    film +4 and attention +6 a step, all tensor-core; the replicas equal;
+    against one rank on the 64 rows with the same draws, its gradient as
+    two halves (DDP_RTOL) and as one batch (DDP_ONE_BATCH_RTOL); wall
+    ms/step of 1 and 2 ranks and peak memory a rank. (c) The model axis on
+    2 ranks: the float32 standard flagship split by columns; one forward
+    on 64x32x42 against the unsplit model, the first gradient and the
+    params after 3 steps (TP_FORWARD_RTOL, TP_RTOL); peak memory a rank.
+    (d) ``dryrun_multichip(4)``: a 2 x 2 grid. On one card the ranks share
+    it over gloo with CUDA tensors, and say so; with a card a rank, NCCL.
+    The film and attention launches of (b) join their records' counts.
+
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
 
@@ -3186,6 +3203,412 @@ def phase_audio(tmp, smi, path):
         f"matplotlib {'imports' if plots.available() else 'absent'}) in "
         f"{seconds:.1f} s on {smi}")
 
+
+# Distributed training (phase 25). 25b-25d run their ranks as processes on
+# this card (gloo over CUDA tensors) or, with a card a rank, on NCCL.
+DDP_STEPS = 20              # 25a: train_ncsn under RANK=0 WORLD_SIZE=1
+DDP_BATCH, DDP_RANKS, DDP_TRAIN_STEPS = 64, 2, 3
+# 25b: the two ranks against one rank on the 64 rows with the same draws,
+# its gradient taken as the ranks take it (two halves of 32 averaged in
+# float32): each parameter within DDP_RTOL of its norm (the same
+# arithmetic: bit-equal on the card). Against one rank's gradient of the
+# 64 rows in one batch: rank 0's first averaged gradient within
+# DDP_GRAD_RTOL of each leaf's norm, every rank's losses within
+# DDP_LOSS_RTOL, and the params after the steps within DDP_ONE_BATCH_RTOL.
+# These differ only by bf16 rounding: a bf16 ulp is 2^-8 (3.9e-3) of an
+# element, and the 32- and 64-row reductions round apart. Read on the card
+# (NVIDIA H100 80GB HBM3, 700 W): params 1.317e-3, losses 8.5e-4, first
+# gradient 3.8e-3 (a LayerNorm scale, whose gradient sums every row's
+# product), the control 0.49. The gradient and the losses carry the scale
+# that Adam and clipping take out of the params: a sum in place of the
+# mean doubles both. The control: one half's gradient alone (a rank whose
+# all-reduce did nothing) must lie beyond DDP_GRAD_RTOL.
+DDP_RTOL = 1e-4
+DDP_GRAD_RTOL = 1e-2
+DDP_LOSS_RTOL = 1e-2
+DDP_ONE_BATCH_RTOL = 5e-3
+# 25c: the float32 standard flagship split over the model axis against the
+# unsplit one: the forward within TP_FORWARD_RTOL of its norm, the first
+# gradient and the params after the steps within TP_RTOL of each leaf's
+# norm. Read on the card (NVIDIA H100 80GB HBM3, 700 W): forward 7.9e-7,
+# gradient 7.5e-7, params 1.3e-6 (the key bias, whose true gradient is 0:
+# Adam steps on its float noise; tests/test_torch_parallel.py reads 3e-4
+# there on the CPU against JAX).
+TP_FORWARD_RTOL, TP_RTOL = 1e-5, 1e-4
+
+
+def _worst(ours, ref):
+    """(worst |a - b| / |b| over the leaves, its name)."""
+    worst = max((_rel(ours[n], ref[n]), n) for n in ref)
+    return worst
+
+
+def _ddp_batch():
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    return torch.rand(DDP_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                      device="cuda") * 2 - 1
+
+
+def _fused_bf16(seed=0):
+    """The fused flagship with bf16 params and compute (phase 13's
+    training layout), weights from a seed."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, fused_attention=True,
+                      fused_head=True, dtype=torch.bfloat16, **FLAGSHIP)
+    load_flax_params(model, random_flax_params(model, seed=seed))
+    return model.to(torch.bfloat16)
+
+
+def _standard_f32(seed=0):
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("TransformerDDPM", device="cuda",
+                      data_channels=CHANNELS, **FLAGSHIP)
+    return load_flax_params(model, random_flax_params(model, seed=seed))
+
+
+def _ddp_config():
+    from smd_tpu_torch.training import diffusion as trainer
+    return trainer.TrainConfig(learning_rate=1e-3, ema=True)
+
+
+def _tp_steps(state, loss_fn, batch, steps):
+    """(the first gradient, whole, before any step; the params after
+    ``steps`` train steps, whole); the split leaves gathered."""
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    grads, _ = state.gradients(loss_fn(state.model, batch, state.generator))
+    grads = {n: (mesh_lib.gather_leaf(g, state.specs[n], state.mesh)
+                 if n in state.specs else g).detach()
+             for n, g in grads.items()}
+    for _ in range(steps):
+        state.descend(loss_fn(state.model, batch, state.generator))
+    return grads, state.state_dict()["params"]
+
+
+def _ddp_rank(rank, n, backend, port, out_dir):
+    """One rank of 25b and 25c: the fused flagship on the data axis, then
+    the float32 standard flagship on the model axis. Each rank writes its
+    launch counts, losses, times and memory to ``out_dir/ranks-{rank}.pt``;
+    rank 0 adds its gradients, params and forward."""
+    import torch.distributed as dist
+
+    from smd_tpu_torch.diffusion import losses, schedules
+    from smd_tpu_torch.ops import _build
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    from smd_tpu_torch.training import diffusion as trainer
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()   # built by phase 2
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    out = {}
+    try:
+        betas = schedules.noise_schedule(1e-6, 0.01, 1000, "linear")
+        batch = _ddp_batch()
+        # 25b: data axis.
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=n, model=1))
+        state = trainer.create_train_state(_fused_bf16(), _ddp_config(),
+                                           seed=0, init=False, mesh=mesh)
+        step = trainer.make_train_step(losses.diffusion_loss, betas, True,
+                                       mesh)
+        rows = mesh_lib.shard_batch(batch, mesh)
+        fresh = trainer.create_train_state(
+            _fused_bf16(), _ddp_config(), seed=0, init=False).state_dict()
+        step(state, rows)   # warm-up: kernels loaded, group connected
+        state.load_state_dict(fresh)
+        # The first step's gradient, averaged over the ranks; then back to
+        # the start (params, moments and generator).
+        grads, _ = state.gradients(trainer.make_loss_fn(
+            losses.diffusion_loss, betas, True, mesh)(state.model, rows,
+                                                      state.generator))
+        out["dp_grads"] = {k: v.float().cpu() for k, v in grads.items()}
+        del grads
+        state.load_state_dict(fresh)
+        del fresh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = [step(state, rows)[1] for _ in range(DDP_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        out["dp_ms"] = 1e3 * (time.perf_counter() - t0) / DDP_TRAIN_STEPS
+        out["dp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["dp_counts"] = _counts()
+        out["dp_tc"] = _side_counts()[0]
+        out["dp_losses"] = [float(m["loss"]) for m in metrics]
+        # Raises on the rank whose params differ from rank 0's.
+        mesh_lib.check_replicas_equal(state.params.values())
+        out["dp_params"] = {k: v.float().cpu() for k, v in
+                            state.state_dict()["params"].items()}
+        del state
+        torch.cuda.empty_cache()
+        # 25c: model axis, float32.
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=1, model=n))
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.create_train_state(_standard_f32(), _ddp_config(),
+                                           seed=0, init=False, mesh=mesh)
+        with torch.no_grad():
+            gen = torch.Generator(device="cuda").manual_seed(26)
+            x = torch.randn(DDP_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                            device="cuda")
+            cond = torch.rand(DDP_BATCH, 1, 1, generator=gen,
+                              device="cuda")
+            out["tp_forward"] = state.model(x, cond).cpu()
+        loss_fn = trainer.make_loss_fn(losses.diffusion_loss, betas, True,
+                                       mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, params = _tp_steps(state, loss_fn, batch, DDP_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out["tp_seconds"] = time.perf_counter() - t0
+        out["tp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["tp_split"] = len(state.specs)
+        out["tp_grads"] = {k: v.cpu() for k, v in grads.items()}
+        out["tp_params"] = {k: v.cpu() for k, v in params.items()}
+        if rank:
+            out = {k: v for k, v in out.items() if not k.startswith(
+                ("dp_grads", "dp_params", "tp_forward", "tp_grads",
+                 "tp_params"))}
+        torch.save(out, os.path.join(out_dir, f"ranks-{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp_single(tmp, smi):
+    """25a: ``dryrun.entry()``; ``train_ncsn`` under RANK=0 WORLD_SIZE=1
+    (an NCCL group of one) against the same steps without the variables,
+    bit for bit."""
+    import torch.distributed as dist
+
+    from smd_tpu_torch import dryrun
+    fn, args = dryrun.entry()
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    if out.shape != (8, SEQ_LEN, CHANNELS) or not torch.isfinite(out).all():
+        fail(f"dryrun.entry() gave {tuple(out.shape)}, not finite")
+    del fn, args
+    data = f"{tmp}/data"
+    runs = {}
+    for name, env in (("group", True), ("plain", False)):
+        argv = [f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
+                f"--model_dir={tmp}/ddp-{name}", f"--max_steps={DDP_STEPS}",
+                f"--snapshot_freq={DDP_STEPS}", "--logging_freq=10"]
+        keys = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+        if env:
+            os.environ.update(RANK="0", WORLD_SIZE="1",
+                              MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(dryrun.free_port()))
+        try:
+            t0 = time.perf_counter()
+            state, _, losses = _train(argv)
+            seconds = time.perf_counter() - t0
+            backend = dist.get_backend() if dist.is_initialized() else None
+        finally:
+            for k in keys:
+                os.environ.pop(k, None)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        if env and backend != "nccl":
+            fail(f"train_ncsn under RANK=0 WORLD_SIZE=1 started {backend}, "
+                 "not an NCCL group")
+        runs[name] = ({n: p.detach().clone() for n, p in
+                       state.params.items()}, float(losses[-1]), seconds)
+        del state
+    differ = [n for n, p in runs["group"][0].items()
+              if not torch.equal(p, runs["plain"][0][n])]
+    if differ:
+        fail(f"train_ncsn in an NCCL group of one differs from the run "
+             f"without one in {len(differ)} parameters, e.g. {differ[:3]}")
+    say(f"dryrun.entry(): the flagship's forward on 8x32x42 on the card; "
+        f"train_ncsn {FLAGFILE} at full width, {DDP_STEPS} steps in an NCCL "
+        f"group of one ({runs['group'][2]:.1f} s) and without "
+        f"({runs['plain'][2]:.1f} s): all {len(runs['plain'][0])} parameters "
+        f"bit-equal, last loss {runs['plain'][1]:.5f}; on {smi}")
+
+
+def _one_rank_ddp(betas, batch):
+    """25b's references on one rank: (its gradient as the ranks take it,
+    two halves of 32 averaged in float32; the gradient of the 64 rows in
+    one batch), each DDP_TRAIN_STEPS steps from the same params and draws.
+    Returns the params of each, the one-batch run's first gradient, ms a
+    step, peak GB and losses, and the first half's first gradient alone
+    (the control)."""
+    from smd_tpu_torch.diffusion import losses
+    from smd_tpu_torch.training import diffusion as trainer
+    loss_fn = trainer.make_loss_fn(losses.diffusion_loss, betas, True)
+    out = {}
+    for how in ("halves", "batch"):
+        state = trainer.create_train_state(_fused_bf16(), _ddp_config(),
+                                           seed=0, init=False)
+        half = DDP_BATCH // DDP_RANKS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_losses = []
+        for _ in range(DDP_TRAIN_STEPS):
+            draws = losses.draws_for(losses.diffusion_loss, batch.shape,
+                                     betas, state.generator, True, "cuda")
+            if how == "batch":
+                grads, loss = state.gradients(loss_fn(state.model, batch,
+                                                      None, draws))
+                run_losses.append(float(loss))
+            else:
+                parts = [state.gradients(loss_fn(
+                    state.model, batch[i * half:(i + 1) * half], None,
+                    tuple(d[i * half:(i + 1) * half] for d in draws)))[0]
+                    for i in range(DDP_RANKS)]
+                grads = {n: (sum(p[n].float() for p in parts) / DDP_RANKS)
+                         .to(parts[0][n].dtype) for n in parts[0]}
+            if f"{how}_grads" not in out:
+                first = parts[0] if how == "halves" else grads
+                out[f"{how}_grads"] = {n: g.detach().clone()
+                                       for n, g in first.items()}
+            state.apply_gradients(grads, state.global_norm(grads))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / DDP_TRAIN_STEPS
+        out[how] = {k: v.float().cpu()
+                    for k, v in state.state_dict()["params"].items()}
+        out[f"{how}_grads"] = {k: v.float().cpu()
+                               for k, v in out[f"{how}_grads"].items()}
+        if how == "batch":
+            out["ms"], out["losses"] = ms, run_losses
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    return out
+
+
+def phase_ddp_ranks(smi):
+    """25b-25c: two ranks on the data axis (the fused flagship at bf16)
+    and on the model axis (the float32 standard flagship). Returns the
+    ranks' launch counts."""
+    from smd_tpu_torch import dryrun
+    from smd_tpu_torch.diffusion import losses, schedules
+    from smd_tpu_torch.training import diffusion as trainer
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DDP_RANKS else "gloo"
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(
+            _ddp_rank, args=(DDP_RANKS, backend, dryrun.free_port(),
+                             out_dir), nprocs=DDP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"ranks-{r}.pt"))
+                 for r in range(DDP_RANKS)]
+    out = ranks[0]
+    betas = schedules.noise_schedule(1e-6, 0.01, 1000, "linear")
+    batch = _ddp_batch()
+    where = (f"{DDP_RANKS} ranks on {cards} card(s), {backend}" +
+             (" over CUDA tensors (the ranks share the card)"
+              if cards < DDP_RANKS else ""))
+    # 25b
+    per_rank = tuple(DDP_TRAIN_STEPS * k for k in per_call_launches("fused"))
+    for r, got in enumerate(ranks):
+        if got["dp_counts"] != per_rank or got["dp_tc"] != per_rank[0]:
+            fail(f"data-axis rank {r} launched (attention, film, w8a8, "
+                 f"flash) {got['dp_counts']} ({got['dp_tc']} tensor-core) "
+                 f"in {DDP_TRAIN_STEPS} steps, expected {per_rank}, all "
+                 "tensor-core")
+    ref = _one_rank_ddp(betas, batch)
+    halves, halves_name = _worst(out["dp_params"], ref["halves"])
+    one, one_name = _worst(out["dp_params"], ref["batch"])
+    grad, grad_name = _worst(out["dp_grads"], ref["batch_grads"])
+    control, control_name = _worst(ref["halves_grads"], ref["batch_grads"])
+    loss = max(abs(a - b) / abs(b) for got in ranks
+               for a, b in zip(got["dp_losses"], ref["losses"]))
+    if halves > DDP_RTOL:
+        fail(f"2 ranks differ from one rank's halves by {halves:.3e} of "
+             f"{halves_name}'s norm, more than {DDP_RTOL}")
+    if grad > DDP_GRAD_RTOL or control <= DDP_GRAD_RTOL:
+        fail(f"rank 0's first averaged gradient differs from one rank's "
+             f"64-row gradient by {grad:.3e} of {grad_name}'s norm (limit "
+             f"{DDP_GRAD_RTOL}); one half's alone by {control:.3e} "
+             "(must exceed it)")
+    if loss > DDP_LOSS_RTOL:
+        fail(f"a rank's losses {[got['dp_losses'] for got in ranks]} "
+             f"differ from one rank's {ref['losses']} by {loss:.3e}, more "
+             f"than {DDP_LOSS_RTOL}")
+    if one > DDP_ONE_BATCH_RTOL:
+        fail(f"2 ranks differ from one rank's 64-row batch by {one:.3e} of "
+             f"{one_name}'s norm, more than {DDP_ONE_BATCH_RTOL}")
+    say(f"25b data axis, fused flagship bf16, global batch {DDP_BATCH} = "
+        f"{DDP_RANKS} x {DDP_BATCH // DDP_RANKS}, {DDP_TRAIN_STEPS} steps "
+        f"({where}): the ranks launched (attention, film, w8a8, flash) "
+        f"{[got['dp_counts'] for got in ranks]}, all attention "
+        f"tensor-core; replicas equal (checksums); "
+        f"against one rank, same draws: halves worst {halves:.3e} "
+        f"({halves_name}; limit {DDP_RTOL}); against its batch of 64: first "
+        f"gradient worst {grad:.3e} ({grad_name}; limit {DDP_GRAD_RTOL}; "
+        f"one half's alone {control:.3e}, {control_name}), losses "
+        f"{loss:.3e} (limit {DDP_LOSS_RTOL}), params after "
+        f"{DDP_TRAIN_STEPS} steps {one:.3e} ({one_name}; limit "
+        f"{DDP_ONE_BATCH_RTOL}); losses "
+        f"{[round(x, 5) for x in out['dp_losses']]} against one rank's "
+        f"{[round(x, 5) for x in ref['losses']]}")
+    say(f"25b wall ms/step: 1 rank (batch 64) {ref['ms']:.2f}, {DDP_RANKS} "
+        f"ranks (32 each) {[round(got['dp_ms'], 2) for got in ranks]}; "
+        f"peak memory a rank "
+        f"{[round(got['dp_peak_gb'], 2) for got in ranks]} GB against one "
+        f"rank's {ref['peak_gb']:.2f} GB; on {smi}")
+    # 25c
+    model = _standard_f32()
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        x = torch.randn(DDP_BATCH, SEQ_LEN, CHANNELS, generator=gen,
+                        device="cuda")
+        cond = torch.rand(DDP_BATCH, 1, 1, generator=gen, device="cuda")
+        whole = model(x, cond).cpu()
+    forward = _rel(out["tp_forward"], whole)
+    if forward > TP_FORWARD_RTOL:
+        fail(f"the model-axis forward differs by {forward:.3e} of its norm")
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.create_train_state(model, _ddp_config(), seed=0,
+                                       init=False)
+    loss_fn = trainer.make_loss_fn(losses.diffusion_loss, betas, True)
+    t0 = time.perf_counter()
+    grads, params = _tp_steps(state, loss_fn, batch, DDP_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    grad, grad_name = _worst(out["tp_grads"],
+                             {k: v.cpu() for k, v in grads.items()})
+    param, param_name = _worst(out["tp_params"],
+                               {k: v.cpu() for k, v in params.items()})
+    if grad > TP_RTOL or param > TP_RTOL:
+        fail(f"the model axis differs from one rank: gradient {grad:.3e} "
+             f"({grad_name}), params {param:.3e} ({param_name})")
+    say(f"25c model axis, standard flagship float32 ({where}; "
+        f"{out['tp_split']} parameters split a rank): forward on "
+        f"{DDP_BATCH}x{SEQ_LEN}x{CHANNELS} {forward:.3e} of its norm (limit "
+        f"{TP_FORWARD_RTOL}); first gradient worst {grad:.3e} ({grad_name}; "
+        f"limit {TP_RTOL}); params after {DDP_TRAIN_STEPS} steps worst "
+        f"{param:.3e} ({param_name}; limit {TP_RTOL}); gradient and "
+        f"{DDP_TRAIN_STEPS} steps {out['tp_seconds']:.2f} s on {DDP_RANKS} "
+        f"ranks, {one_s:.2f} s on one; peak memory a rank "
+        f"{[round(got['tp_peak_gb'], 2) for got in ranks]} GB against one "
+        f"rank's {peak:.2f} GB; "
+        f"ranks spawned and run in {spawn_s:.1f} s; on {smi}")
+    del state, model
+    torch.cuda.empty_cache()
+    return tuple(sum(c) for c in zip(*(got["dp_counts"] for got in ranks)))
+
+
+def phase_dryrun_multichip(smi):
+    """25d: ``dryrun_multichip(4)``: 4 ranks, a 2 x 2 grid."""
+    from smd_tpu_torch import dryrun
+    t0 = time.perf_counter()
+    result = dryrun.dryrun_multichip(4)
+    if (result["data"], result["model"]) != (2, 2) or \
+            not np.isfinite(result["loss"]):
+        fail(f"dryrun_multichip(4): {result}")
+    say(f"25d dryrun_multichip(4) in {time.perf_counter() - t0:.1f} s: "
+        f"{result}; on {smi}")
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -3268,6 +3691,16 @@ def main():
                 phase_audio(tmp24, smi, trained)
         say(f"phase 24 (codec training, metrics, audio) took "
             f"{time.perf_counter() - t24:.1f} s")
+        torch.cuda.empty_cache()
+        t25 = time.perf_counter()
+        with Phase("25a one rank in a group"):
+            phase_ddp_single(tmp, smi)
+        with Phase("25b-c data and model axes"):
+            served.append(phase_ddp_ranks(smi))
+        with Phase("25d dryrun_multichip"):
+            phase_dryrun_multichip(smi)
+        say(f"phase 25 (distributed training) took "
+            f"{time.perf_counter() - t25:.1f} s")
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

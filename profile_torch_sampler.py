@@ -21,7 +21,9 @@ position over the KV cache). It prints: wall seconds per step
 (union of the kernels' intervals in the trace) and its idle share, the
 device time by kind (the port's kernels, the library's matmuls, PyTorch's
 multi-tensor and other kernels) and the kernels by device time. The last
-line is one JSON object with those numbers. Needs a CUDA device.
+line is one JSON object with those numbers; the Chrome trace of the
+profiled steps goes to ``--trace_dir``, whose op profile
+(``smd_tpu_torch.utils.profiling``) is printed too. Needs a CUDA device.
 """
 import argparse
 import json
@@ -31,6 +33,7 @@ from collections import defaultdict
 import torch
 
 import chip_smoke
+from smd_tpu_torch.utils import profiling
 
 
 def _serve(model_fn, steps, batch, shape, seed):
@@ -56,6 +59,8 @@ def main():
                          "standard layout (flash attention at S >= 512), "
                          "the single-latent DenseDDPM, or the MDN's cached "
                          "decode")
+    ap.add_argument("--trace_dir", default="chiprun_out/profile-sampler",
+                    help="where the Chrome trace of the profiled steps goes")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
     if args.layout == "mdn":
@@ -85,15 +90,13 @@ def main():
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps
 
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with profiling.trace(args.trace_dir, "cuda") as prof:
             serve(args.steps, 1)
-            torch.cuda.synchronize()
 
     report(prof, args.steps, wall, smi,
            f"{args.layout}, batch {args.batch}, seq_len {args.seq_len}",
-           layout=args.layout, batch=args.batch, seq_len=args.seq_len)
+           trace_dir=args.trace_dir, layout=args.layout, batch=args.batch,
+           seq_len=args.seq_len)
 
 
 # The port's CUDA kernels (smd_tpu_torch/csrc/), by name.
@@ -115,11 +118,12 @@ def kind(name):
     return "other kernels"
 
 
-def report(prof, steps, wall, smi, what, **meta):
+def report(prof, steps, wall, smi, what, trace_dir=None, **meta):
     """Print wall and device-busy ms per step, the idle share, the device
     time by kind and the kernels by device time from a ``torch.profiler``
-    trace of ``steps`` steps; the last line one JSON object with them and
-    ``meta``."""
+    trace of ``steps`` steps, and the trace's op profile
+    (``utils.profiling``) where ``trace_dir`` holds it; the last line one
+    JSON object with them and ``meta``."""
     device, busy, span, idle = chip_smoke.trace_summary(prof)
     per_kernel = defaultdict(lambda: [0, 0.0])
     for evt in device:
@@ -143,6 +147,10 @@ def report(prof, steps, wall, smi, what, **meta):
     for name, (calls, us) in rows[:25]:
         print(f"{us / 1e3 / steps:14.4f} {calls / steps:10.1f}  "
               f"{name[:110]}")
+    if trace_dir is not None:
+        print("op profile (device time by launching operation):")
+        print(profiling.format_op_profile(*profiling.op_profile(trace_dir),
+                                          steps=steps))
     print(json.dumps({
         "card": smi, **meta, "steps": steps,
         "wall_ms_per_step": wall * 1e3,

@@ -24,8 +24,8 @@ it times ``--steps`` steps (host clock
 around a synchronised run), then traces as many under ``torch.profiler``,
 and prints wall and device-busy ms per step, the idle share, the device
 time by kind and the kernels by device time (``profile_torch_sampler.
-report``); the last line is one JSON object with those numbers. Needs a
-CUDA device.
+report``, with the op profile of the trace written to ``--trace_dir``);
+the last line is one JSON object with those numbers. Needs a CUDA device.
 """
 import argparse
 import time
@@ -34,6 +34,7 @@ import torch
 
 import chip_smoke
 from profile_torch_sampler import report
+from smd_tpu_torch.utils import profiling
 
 MODES = ("fp32", "mixed", "fused", "distill", "mdn")
 
@@ -67,6 +68,8 @@ def main():
     ap.add_argument("--mode", choices=MODES, default="fp32")
     ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--trace_dir", default="chiprun_out/profile-train",
+                    help="where the Chrome trace of the profiled steps goes")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
     from smd_tpu_torch.diffusion import losses, schedules
@@ -99,13 +102,11 @@ def main():
     t0 = time.perf_counter()
     run()
     wall = (time.perf_counter() - t0) / args.steps
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace(args.trace_dir, "cuda") as prof:
         run()
     report(prof, args.steps, wall, smi,
            f"train {args.mode}, batch {args.batch}, 32x42",
-           mode=args.mode, batch=args.batch)
+           trace_dir=args.trace_dir, mode=args.mode, batch=args.batch)
 
 
 if __name__ == "__main__":

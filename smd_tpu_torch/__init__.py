@@ -36,11 +36,17 @@ Subpackages
 - ``smd_tpu_torch.training``: the optimizer, train state, train step and
   loop; progressive and consistency distillation.
 - ``smd_tpu_torch.utils``: the Flax params tree <-> module weight carrier,
-  checkpoints, the pickle loader of the JAX package's bundles, logging.
+  checkpoints, the pickle loader of the JAX package's bundles, logging,
+  op profiles, the reader of flax's msgpack checkpoints and the
+  reference-checkpoint converter.
 - ``smd_tpu_torch.scripts``: the dataset scripts (``transform_encoded_data``,
   ``generate_compressed_transform``) and the codec scripts
   (``generate_song_data``, ``decode_dataset``,
-  ``package_generation_bundle``, ``generate_melodies``).
+  ``package_generation_bundle``, ``generate_melodies``), and
+  ``convert_reference_checkpoint``.
+- ``smd_tpu_torch.parallel``: process groups on a (data, model) grid, the
+  split rules and column-parallel Dense layers; ``smd_tpu_torch.dryrun``
+  runs one train step across spawned ranks.
 - ``smd_tpu_torch.cli``, ``smd_tpu_torch.train_ncsn``,
   ``smd_tpu_torch.sample_ncsn``: the flags (parsed without absl) and the
   training (and distillation) and sampling entry points.

@@ -16,6 +16,7 @@ is kept as it is.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Any, Callable, Dict, List, Sequence
 
@@ -26,11 +27,14 @@ from smd_tpu_torch.diffusion import schedules
 from smd_tpu_torch.models import get_model
 from smd_tpu_torch.training.diffusion import TrainConfig
 
+log = logging.getLogger("smd_tpu_torch")
+
 __all__ = ["FLAGS", "Flags", "FlagsError", "define_common_flags",
            "define_diffusion_flags", "define_sampling_flags",
            "train_config_from_flags", "model_from_flags", "latent_width",
            "serving_model_fn",
-           "schedule_from_flags", "dataset_from_flags",
+           "schedule_from_flags", "initialize_from_flags",
+           "mesh_from_flags", "dataset_from_flags",
            "load_transforms_from_flags", "restore_state_for_sampling"]
 
 
@@ -217,8 +221,7 @@ def define_common_flags():
     F.DEFINE_boolean("verbose", True, "Toggle logging to stdout.")
     # Parallelism / scale
     F.DEFINE_integer("model_parallelism", 1,
-                     "Size of the tensor-parallel mesh axis (1 only: the "
-                     "port runs on one device).")
+                     "Size of the tensor-parallel mesh axis.")
     F.DEFINE_integer("scan_chunk", 1,
                      "Steps per dispatch in the JAX package; the port "
                      "launches each step on its own and keeps the same "
@@ -419,18 +422,63 @@ def schedule_from_flags():
                                     kind=FLAGS.schedule_type)
 
 
+def initialize_from_flags():
+    """Join the process group that torchrun's variables declare (NCCL on
+    ``--device=cuda``, one card a rank; gloo on the CPU) and return
+    (rank, world size); (0, 1) without them. See
+    ``parallel.mesh.initialize_distributed``."""
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    rank, world = mesh_lib.initialize_distributed(FLAGS.device)
+    if world > 1:
+        log.info("distributed: rank %d of %d on %s", rank, world,
+                 resolve_device(FLAGS.device))
+    return rank, world
+
+
+def mesh_from_flags():
+    """The (data, model) mesh over the process group, ``--model_parallelism``
+    ranks a model group; None on one rank without a model axis."""
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    _, world = _world()
+    model_axis = max(1, FLAGS.model_parallelism)
+    if world == 1 and model_axis == 1:
+        return None
+    return mesh_lib.make_mesh(
+        mesh_lib.MeshConfig(data=world // model_axis, model=model_axis))
+
+
+def _world():
+    """(rank, world size) of the default group; (0, 1) without one."""
+    import torch.distributed as dist
+    started = dist.is_available() and dist.is_initialized()
+    return (dist.get_rank(), dist.get_world_size()) if started else (0, 1)
+
+
 def dataset_from_flags(include_cardinality=True, problem=None):
+    """(train, eval) Datasets of the flags. ``--batch_size`` is the global
+    batch: across ranks each rank of a model group reads the same shard,
+    shard ``rank // --model_parallelism`` of ``world //
+    --model_parallelism``, in batches of the global batch over that
+    count."""
     from smd_tpu_torch.data import pipeline
+    rank, world = _world()
+    model_axis = max(1, FLAGS.model_parallelism)
+    count = max(world // model_axis, 1)
+    if FLAGS.batch_size % count:
+        raise ValueError(f"batch_size {FLAGS.batch_size} must divide by "
+                         f"process_count {count}")
     return pipeline.get_dataset(
         dataset=FLAGS.dataset,
         data_shape=FLAGS.data_shape,
         problem=problem if problem is not None else FLAGS.problem,
-        batch_size=FLAGS.batch_size,
+        batch_size=FLAGS.batch_size // count,
         normalize=FLAGS.normalize,
         pca_ckpt=FLAGS.pca_ckpt,
         slice_ckpt=FLAGS.slice_ckpt,
         dim_weights_ckpt=FLAGS.dim_weights_ckpt,
         include_cardinality=include_cardinality,
+        shard_index=rank // model_axis,
+        shard_count=count,
         seed=FLAGS.seed)
 
 

@@ -14,31 +14,24 @@ native render against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 
 import numpy as np
+
+from smd_tpu_torch.utils import native
 
 __all__ = ["synthesize", "note_sequence_to_wav", "library_path",
            "load_library"]
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_ROOT, "native", "smd_synth.cpp")
-BUILD_DIR = os.path.join(_ROOT, "smd_tpu_torch", "_build")
-CXXFLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+SOURCE = os.path.join(native.ROOT, "native", "smd_synth.cpp")
+BUILD_DIR = native.BUILD_DIR
 _LIB = None
 
 
 def library_path() -> str:
     """Where the library of the current source and flags is built: the
     name carries a hash of both."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libsmd_synth-{digest.hexdigest()[:12]}"
-                                   ".so")
+    return native.library_path(SOURCE, "libsmd_synth", BUILD_DIR)
 
 
 def load_library():
@@ -47,23 +40,7 @@ def load_library():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so_path = library_path()
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # Built under a temporary name and moved into place, so processes
-        # that build at once never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            result = subprocess.run(["g++", *CXXFLAGS, SOURCE, "-o", tmp],
-                                    capture_output=True, text=True)
-            if result.returncode:
-                raise RuntimeError(f"building {SOURCE} with g++ failed:\n"
-                                   f"{result.stderr}")
-            os.replace(tmp, so_path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+    so_path = native.build(SOURCE, "libsmd_synth", BUILD_DIR)
     lib = ctypes.CDLL(so_path)
     lib.synth_render.restype = ctypes.c_int
     lib.synth_render.argtypes = [

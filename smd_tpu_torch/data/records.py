@@ -3,16 +3,19 @@
 
 Schema (``scripts/transform_encoded_data.py:71-92``)::
 
-    {'inputs': float_list, 'input_shape': int64_list}
+    {'inputs': float_list | serialized bool tensor,
+     'input_shape': int64_list}
 
 optionally with 'targets'/'target_shape'. Each ``tf.train.Example`` is
 encoded by hand in the protobuf wire format, and each record framed as
 TFRecord frames it: the length (uint64, little-endian), its masked CRC32C,
 the payload, the payload's masked CRC32C. The CRCs are computed with numpy
 over all records of one length at once. Reading is
-``data/tfrecord_native.py``; the boolean ``tokens`` records, a serialized
-TensorFlow tensor, are not ported. ``TFRecordWriter`` frames raw payloads
-(the codec scripts' pickled arrays) one record at a time, as
+``data/tfrecord_native.py``. The ``tokens`` records hold a bool tensor as
+``tf.io.serialize_tensor`` writes it, a ``TensorProto`` (dtype DT_BOOL,
+``tensor_shape``, ``tensor_content`` one byte an element), written and read
+by hand (``serialize_tensor``, ``parse_tensor``). ``TFRecordWriter`` frames
+raw payloads (the codec scripts' pickled arrays) one record at a time, as
 ``tf.io.TFRecordWriter`` does.
 """
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Iterable, List
 import numpy as np
 
 __all__ = ["serialize_example", "write_tfrecord", "crc32c",
-           "frame_records", "TFRecordWriter"]
+           "frame_records", "TFRecordWriter", "serialize_tensor",
+           "parse_tensor"]
 
 
 def _crc_table() -> np.ndarray:
@@ -94,15 +98,64 @@ def _int_feature(values) -> bytes:
     return _field(3, _field(1, b"".join(_varint(int(v)) for v in values)))
 
 
+def _bytes_feature(value: bytes) -> bytes:
+    # Feature{ bytes_list = 1 { value = 1 } }
+    return _field(1, _field(1, value))
+
+
+# TensorFlow's DataType enum: DT_BOOL.
+_DT_BOOL = 10
+
+
+def serialize_tensor(tensor) -> bytes:
+    """``tf.io.serialize_tensor`` of ``tensor`` as a bool tensor: the
+    ``TensorProto`` {dtype = 1: DT_BOOL, tensor_shape = 2: {dim = 2:
+    {size = 1}}, tensor_content = 4: one byte an element}, fields at
+    their proto3 defaults left out."""
+    tensor = np.asarray(tensor).astype(bool)
+    dims = b"".join(_field(2, _varint(1 << 3) + _varint(n) if n else b"")
+                    for n in tensor.shape)
+    out = _varint(1 << 3) + _varint(_DT_BOOL) + _field(2, dims)
+    content = np.ascontiguousarray(tensor).view(np.uint8).tobytes()
+    return out + (_field(4, content) if content else b"")
+
+
+def parse_tensor(data: bytes) -> np.ndarray:
+    """The bool tensor of a ``serialize_tensor`` record
+    (``tf.io.parse_tensor(data, out_type=tf.bool)``); raises on another
+    dtype."""
+    from smd_tpu_torch.data.tfrecord_native import _iter_fields
+    dtype, shape, content = None, [], b""
+    for field, value in _iter_fields(data, 0, len(data)):
+        if field == 1:
+            dtype = value
+        elif field == 2:
+            for f, dim in _iter_fields(value, 0, len(value)):
+                if f == 2:
+                    size = 0
+                    for g, v in _iter_fields(dim, 0, len(dim)):
+                        if g == 1:
+                            size = v
+                    shape.append(size)
+        elif field == 4:
+            content = bytes(value)
+    if dtype != _DT_BOOL:
+        raise ValueError(f"Type mismatch between parsed tensor ({dtype}) "
+                         f"and dtype (bool)")
+    if len(content) != int(np.prod(shape, dtype=np.int64)):
+        raise ValueError(f"a bool tensor of shape {shape} holds "
+                         f"{len(content)} bytes of content")
+    return np.frombuffer(content, np.uint8).astype(bool).reshape(shape)
+
+
 def serialize_example(input_tensor, target_tensor=None,
                       tokens: bool = False) -> bytes:
-    """One tf.train.Example in the reference's schema."""
-    if tokens:
-        raise NotImplementedError(
-            "token records hold a serialized TensorFlow tensor and are not "
-            "ported to smd_tpu_torch yet: see ROADMAP.md, queue A")
+    """One tf.train.Example in the reference's schema; ``tokens`` writes
+    the inputs as a serialized bool tensor."""
     input_tensor = np.asarray(input_tensor)
-    features = {"inputs": _float_feature(input_tensor.reshape(-1)),
+    inputs = _bytes_feature(serialize_tensor(input_tensor)) if tokens \
+        else _float_feature(input_tensor.reshape(-1))
+    features = {"inputs": inputs,
                 "input_shape": _int_feature(input_tensor.shape)}
     if target_tensor is not None:
         target_tensor = np.asarray(target_tensor)

@@ -22,7 +22,8 @@ import torch
 
 from smd_tpu_torch.diffusion import schedules
 
-__all__ = ["reduce_fn", "padded_alphas_prod", "diffusion_loss",
+__all__ = ["reduce_fn", "padded_alphas_prod", "diffusion_draws",
+           "score_draws", "draws_for", "diffusion_loss",
            "denoising_score_matching_loss", "sliced_score_matching_loss",
            "gaussian_mixture_loss", "mdn_nll",
            "mean_squared_error", "series_loss",
@@ -47,6 +48,19 @@ def padded_alphas_prod(betas) -> torch.Tensor:
     betas = np.asarray(torch.as_tensor(betas, dtype=torch.float32).cpu())
     prod = schedules._cumprod_f32(np.float32(1.0) - betas)
     return torch.from_numpy(np.concatenate([np.ones(1, np.float32), prod]))
+
+
+def diffusion_draws(shape, num_levels: int, continuous_noise: bool,
+                    generator, device):
+    """``diffusion_loss``'s draws for a batch of ``shape``, from
+    ``generator`` in this order: labels (B,) in [c, T + c) with c =
+    int(continuous_noise), u (B,) in [0, 1), eps of ``shape``."""
+    B, c = shape[0], int(continuous_noise)
+    labels = torch.randint(c, num_levels + c, (B,), generator=generator,
+                           device=device)
+    u = torch.rand(B, generator=generator, device=device)
+    eps = torch.randn(shape, generator=generator, device=device)
+    return labels, u, eps
 
 
 def diffusion_loss(batch, model_fn, betas,
@@ -78,17 +92,14 @@ def diffusion_loss(batch, model_fn, betas,
     from ``generator`` in that order, on the batch's device.
     """
     T = betas.shape[0]
-    c = int(continuous_noise)
     B = batch.shape[0]
     device = batch.device
     if alphas_prod is None:
         alphas_prod = padded_alphas_prod(betas)
     alphas_prod = alphas_prod.to(device)
     if draws is None:
-        labels = torch.randint(c, T + c, (B,), generator=generator,
-                               device=device)
-        u = torch.rand(B, generator=generator, device=device)
-        eps = torch.randn(batch.shape, generator=generator, device=device)
+        labels, u, eps = diffusion_draws(batch.shape, T, continuous_noise,
+                                         generator, device)
     else:
         labels, u, eps = (torch.as_tensor(d, device=device) for d in draws)
     lo, hi = alphas_prod[labels - 1], alphas_prod[labels]
@@ -120,25 +131,50 @@ def _sample_sigmas(sigmas, batch, continuous_noise, labels, u):
     return used.reshape(batch.shape[0], *([1] * (batch.dim() - 1)))
 
 
+def score_draws(shape, num_levels: int, continuous_noise: bool, generator,
+                device, probes: bool = False, dtype=torch.float32):
+    """The score-matching objectives' draws for a batch of ``shape``, from
+    ``generator`` in this order: labels (B,) in [c, L) with c =
+    int(continuous_noise), u (B,) for continuous noise (else None), eps of
+    ``shape``, and for SSM (``probes``) the Rademacher probes of
+    ``shape`` in ``dtype``."""
+    B, c = shape[0], int(continuous_noise)
+    labels = torch.randint(c, num_levels, (B,), generator=generator,
+                           device=device)
+    u = torch.rand(B, generator=generator, device=device) if c else None
+    eps = torch.randn(shape, generator=generator, device=device)
+    if not probes:
+        return labels, u, eps
+    vectors = torch.randint(0, 2, shape, generator=generator,
+                            device=device).to(dtype) * 2 - 1
+    return labels, u, eps, vectors
+
+
+def draws_for(objective, shape, sigmas, generator, continuous_noise: bool,
+              device, dtype=torch.float32):
+    """What ``objective`` draws from ``generator`` for a batch of ``shape``,
+    drawn as it draws it: pass them back through its ``draws=``. A data
+    axis draws the global batch's and keeps each rank's rows, so that the
+    ranks together draw what one rank draws for the whole batch."""
+    levels = len(sigmas)
+    if objective is diffusion_loss:
+        return diffusion_draws(shape, levels, continuous_noise, generator,
+                               device)
+    return score_draws(shape, levels, continuous_noise, generator, device,
+                       probes=objective is sliced_score_matching_loss,
+                       dtype=dtype)
+
+
 def _score_draws(sigmas, batch, generator, continuous_noise, draws,
                  probes: bool):
     """(labels, u, eps[, vectors]) on the batch's device: ``draws`` as
-    given, or from ``generator`` in that order (u only for continuous
-    noise; the Rademacher probes only for SSM)."""
+    given, or from ``generator`` (``score_draws``)."""
     device = batch.device
     if draws is not None:
         return tuple(None if d is None else torch.as_tensor(d, device=device)
                      for d in draws)
-    B, L = batch.shape[0], sigmas.shape[0]
-    c = int(continuous_noise)
-    labels = torch.randint(c, L, (B,), generator=generator, device=device)
-    u = torch.rand(B, generator=generator, device=device) if c else None
-    eps = torch.randn(batch.shape, generator=generator, device=device)
-    if not probes:
-        return labels, u, eps
-    vectors = torch.randint(0, 2, batch.shape, generator=generator,
-                            device=device).to(batch.dtype) * 2 - 1
-    return labels, u, eps, vectors
+    return score_draws(batch.shape, sigmas.shape[0], continuous_noise,
+                       generator, device, probes, batch.dtype)
 
 
 def denoising_score_matching_loss(batch, model_fn, sigmas,

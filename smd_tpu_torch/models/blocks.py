@@ -283,5 +283,6 @@ class MDN(nn.Module):
         self.Dense_2 = Dense(in_features, num_components)  # pi
 
     def forward(self, inputs):
-        return self.Dense_2(inputs), self.Dense_0(inputs), \
-            self.Dense_1(inputs)
+        # Called in the Flax module's order (the converter pairs by it).
+        mu, log_sigma = self.Dense_0(inputs), self.Dense_1(inputs)
+        return self.Dense_2(inputs), mu, log_sigma

@@ -11,7 +11,10 @@ records the 1-seq flagfiles train on) and ``sequences`` (sliding context
 windows and the next latent as target); ``--toy_data`` puts the 2-D toy
 mixture in place of each song; shards of ``--shard_size`` examples, as
 TFRecords in the reference's example schema or as pickles. ``decoded``
-writes token records, not ported yet (``ROADMAP.md`` queue A, item 11).
+reads ``decoded-{train,eval}.tfrecord-*`` (each record a pickled (n, V)
+one-hot token grid), drops songs of fewer than 896 steps, pads the rest to
+1024 with the first token, and writes them as token records (a serialized
+bool tensor each, ``data/records.serialize_tensor``).
 """
 from __future__ import annotations
 
@@ -58,9 +61,9 @@ def _save_shard(contexts, targets, output_path):
     from smd_tpu_torch.data import records
     from smd_tpu_torch.utils import io as io_lib
 
-    if FLAGS.mode == "flatten":
-        shard_examples = np.stack(targets[:FLAGS.shard_size]) \
-            .astype(np.float32)
+    if FLAGS.mode in ("flatten", "decoded"):
+        dtype = bool if FLAGS.mode == "decoded" else np.float32
+        shard_examples = np.stack(targets[:FLAGS.shard_size]).astype(dtype)
         shard_targets = None
         targets = targets[FLAGS.shard_size:]
     else:  # sequences
@@ -79,7 +82,8 @@ def _save_shard(contexts, targets, output_path):
             io_lib.save((shard_examples, shard_targets), output_path)
     else:
         records.write_tfrecord(output_path, shard_examples,
-                               targets=shard_targets)
+                               targets=shard_targets,
+                               tokens=FLAGS.mode == "decoded")
     log.info("Saved to %s", output_path)
     return contexts, targets
 
@@ -88,17 +92,28 @@ def _transform_split(files, split, rng):
     from smd_tpu_torch.data.synthetic import toy_distribution
 
     contexts, targets = [], []
-    count = example_count = songs = 0
+    count = example_count = songs = discard = 0
     should_terminate = False
     for song_data in iter_encoded_records(files):
         song_embeddings = np.asarray(song_data)
         songs += 1
         if FLAGS.max_songs is not None and songs > FLAGS.max_songs:
             break
-        if song_embeddings.ndim != 3 or song_embeddings.shape[0] != 3:
+        if FLAGS.mode == "decoded":
+            song = song_embeddings
+            if song.shape[0] < 896:
+                discard += 1
+                continue
+            padding = np.zeros((1024 - song.shape[0], song.shape[-1]))
+            padding[:, 0] = 1.0
+            song = np.concatenate((song, padding))
+            example_count += 1
+            targets.append(song)
+        elif song_embeddings.ndim != 3 or song_embeddings.shape[0] != 3:
             raise ValueError(f"an encoded song is [3, n, d] (z, mu, sigma), "
                              f"got {song_embeddings.shape}")
-        song = song_embeddings[0]  # z component
+        else:
+            song = song_embeddings[0]  # z component
         if FLAGS.toy_data:
             song = toy_distribution(batch_size=len(song), rng=rng)
 
@@ -112,7 +127,7 @@ def _transform_split(files, split, rng):
                     break
                 example_count += 1
                 targets.append(vec)
-        else:  # sequences
+        elif FLAGS.mode == "sequences":
             ctx = FLAGS.context_length
             for i in range(0, len(song) - ctx, FLAGS.stride):
                 context = song[i:i + ctx]
@@ -133,6 +148,7 @@ def _transform_split(files, split, rng):
             count += 1
         if should_terminate:
             break
+    log.info("Discarded %d invalid sequences.", discard)
     if targets:
         _save_shard(contexts, targets,
                     f"{FLAGS.output_path}/{split}-{count:04d}")
@@ -142,14 +158,12 @@ def main(argv):
     """Parse ``argv`` (``argv[0]`` is the program) and write the shards."""
     FLAGS(argv)
     if FLAGS.mode == "decoded":
-        raise NotImplementedError(
-            "--mode=decoded writes token records (a serialized TensorFlow "
-            "tensor), not ported to smd_tpu_torch yet: see ROADMAP.md, "
-            "queue A, item 11")
+        globs = ("decoded-train.tfrecord-*", "decoded-eval.tfrecord-*")
+    else:
+        globs = ("training_seqs.tfrecord-*", "eval_seqs.tfrecord-*")
     base = os.path.expanduser(FLAGS.encoded_data)
     rng = np.random.default_rng(0)
-    for pattern, split in (("training_seqs.tfrecord-*", "train"),
-                           ("eval_seqs.tfrecord-*", "eval")):
+    for pattern, split in zip(globs, ("train", "eval")):
         files = sorted(glob.glob(os.path.join(base, pattern)))
         if not files:
             log.warning("No files for split %s (%s)", split, pattern)

@@ -8,7 +8,9 @@ Reads the same layered ``configs/mdn-*.cfg`` flagfiles as the JAX package's
 ``train_mdn.py``, always on the ``vae`` problem, as the reference does, and
 ``--device`` (``cuda`` unless ``--device=cpu``; no GPU is an error).
 Checkpoints go to ``MODEL_DIR/ckpt/{step}.pt``; a rerun resumes, and
-``python -m smd_tpu_torch.sample_mdn`` serves the latest.
+``python -m smd_tpu_torch.sample_mdn`` serves the latest. Under
+``torchrun`` it trains across processes as ``train_ncsn`` does
+(``--batch_size`` global, ``--model_parallelism`` the model axis).
 """
 from __future__ import annotations
 
@@ -33,12 +35,8 @@ def main(argv, step_callback=None):
     FLAGS(argv)
     log.info("flags: %s", {n: getattr(FLAGS, n) for n in FLAGS.names()})
     resolve_device(FLAGS.device)
-    if FLAGS.model_parallelism > 1:
-        raise NotImplementedError(
-            "--model_parallelism > 1 needs a device mesh (DDP and tensor "
-            "parallelism), not ported to smd_tpu_torch yet: see ROADMAP.md, "
-            "queue A, item 11")
-
+    cli.initialize_from_flags()
+    mesh = cli.mesh_from_flags()
     train_ds, eval_ds = cli.dataset_from_flags(problem="vae")
     input_shape = next(iter(eval_ds)).shape[1:]
     model = cli.model_from_flags(input_shape[-1], mdn=True)
@@ -49,6 +47,7 @@ def main(argv, step_callback=None):
                        input_shape=input_shape,
                        config=config,
                        model_dir=FLAGS.model_dir,
+                       mesh=mesh,
                        seed=FLAGS.seed,
                        step_callback=step_callback)
 

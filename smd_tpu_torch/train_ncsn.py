@@ -21,6 +21,14 @@ generated latents (inverse transformed) to
 and score fields of the ``toy`` problem, and the ``vae`` tiles, to
 TensorBoard where matplotlib imports (skipped with a log line where it
 does not).
+
+Across processes, under ``torchrun --nproc_per_node=N -m
+smd_tpu_torch.train_ncsn ...`` (one card a rank, NCCL; gloo with
+``--device=cpu``): ``--batch_size`` is the global batch, each data shard
+reads its share, and ``--model_parallelism=M`` splits the Dense layers over
+model groups of M ranks. Rank 0 writes the checkpoints, summaries and
+snapshots; a checkpoint restores under any grid and serves on one card.
+``--distill`` runs on one rank.
 """
 from __future__ import annotations
 
@@ -39,12 +47,15 @@ log = logging.getLogger("smd_tpu_torch")
 
 
 def snapshot_sampling_callback(model, sigmas, train_ds, eval_ds, writer,
-                               output_dir):
+                               output_dir, write=True):
     """In-training sampling and logging (the JAX package's, reference
     ``train_ncsn.py:405-486``), for ``training.loop.run_loop``'s
     ``snapshot_callback``. Each snapshot samples with a generator seeded
     ``--seed + sampling_step + 1`` on the model's device, through the model
-    with the EMA params (``state.sampling_params``)."""
+    with the EMA params (``state.sampling_params``). Under a model axis
+    every rank of the first model group samples (the split products run
+    on all of them) and ``write`` is set on rank 0 alone: the others
+    write nothing."""
     import functools
 
     import numpy as np
@@ -81,6 +92,8 @@ def snapshot_sampling_callback(model, sigmas, train_ds, eval_ds, writer,
                 epsilon=FLAGS.ld_epsilon, steps=FLAGS.ld_steps,
                 denoise=FLAGS.denoise, ddim_steps=FLAGS.ddim_steps,
                 ddim_eta=FLAGS.ddim_eta, device=device)
+        if not write:
+            return
         if ld_metrics is not None:
             log_sampling_metrics(ld_metrics, sampling_step, output_dir)
 
@@ -220,14 +233,13 @@ def main(argv, step_callback=None):
     FLAGS(argv)
     log.info("flags: %s", {n: getattr(FLAGS, n) for n in FLAGS.names()})
     resolve_device(FLAGS.device)
+    rank, world = cli.initialize_from_flags()
     if FLAGS.distill:
+        if world > 1:
+            raise ValueError(f"--distill runs on one rank, not {world}: "
+                             "its steps take no data axis")
         return run_distillation(*cli.dataset_from_flags())
-    if FLAGS.model_parallelism > 1:
-        raise NotImplementedError(
-            "--model_parallelism > 1 needs a device mesh (DDP and tensor "
-            "parallelism), not ported to smd_tpu_torch yet: see ROADMAP.md, "
-            "queue A, item 11")
-
+    mesh = cli.mesh_from_flags()
     train_ds, eval_ds = cli.dataset_from_flags()
     sigmas = cli.schedule_from_flags()
     sample_batch = next(iter(eval_ds))
@@ -235,17 +247,19 @@ def main(argv, step_callback=None):
     model = cli.model_from_flags(input_shape[-1])
     config = cli.train_config_from_flags()
     callback = None
-    if FLAGS.snapshot_sampling:
+    if FLAGS.snapshot_sampling and (mesh is None or mesh.data_index == 0):
         from smd_tpu_torch.utils.logging import SummaryWriter
         callback = snapshot_sampling_callback(
             model, sigmas, train_ds, eval_ds,
-            SummaryWriter(f"{FLAGS.model_dir}/eval"), FLAGS.model_dir)
+            SummaryWriter(f"{FLAGS.model_dir}/eval") if rank == 0 else None,
+            FLAGS.model_dir, write=rank == 0)
     return trainer.fit(model, sigmas,
                        train_data=lambda: iter(train_ds),
                        eval_data=lambda: iter(eval_ds),
                        input_shape=input_shape,
                        config=config,
                        model_dir=FLAGS.model_dir,
+                       mesh=mesh,
                        seed=FLAGS.seed,
                        snapshot_callback=callback,
                        step_callback=step_callback)

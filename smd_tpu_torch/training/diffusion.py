@@ -5,6 +5,14 @@ Adam → float32 EMA, with the metrics ``loss``, ``grad`` and ``lr`` (as
 device tensors, except the LR, a float). The JAX package jits this into one
 program; here it is one eager step on the model's device. ``fit`` builds
 the state and hands it to ``loop.run_loop``.
+
+Under a ``parallel.mesh.Mesh`` (``mesh=``) each rank holds its rows of the
+global batch. The JAX step draws the noise of the global batch from one
+key and each device computes its rows; here each rank draws the global
+batch's draws from the shared generator (every rank seeds it alike) and
+keeps its own rows, so that two ranks together take the step one rank
+takes on the concatenated batch. The gradients are averaged over the data
+group (``TrainState.descend``).
 """
 from __future__ import annotations
 
@@ -15,13 +23,15 @@ import torch
 
 from smd_tpu_torch.diffusion import losses as losses_lib
 from smd_tpu_torch.models.layers import init_parameters
+from smd_tpu_torch.parallel import mesh as mesh_lib
 from smd_tpu_torch.training import loop as loop_lib
 from smd_tpu_torch.training.optimizer import make_optimizer
 from smd_tpu_torch.training.state import TrainState
 from smd_tpu_torch.utils import logging as log_lib
 
 __all__ = ["TrainConfig", "objective_by_name", "create_train_state",
-           "make_train_step", "make_eval_step", "evaluate", "fit"]
+           "make_loss_fn", "make_train_step", "make_eval_step", "evaluate",
+           "fit"]
 
 OBJECTIVES = {
     "dsm": losses_lib.denoising_score_matching_loss,
@@ -70,21 +80,30 @@ class TrainConfig:
 
 
 def create_train_state(model, config: TrainConfig, seed: int = 0,
-                       init: bool = True) -> TrainState:
+                       init: bool = True, mesh=None) -> TrainState:
     """The state of a fresh run: params drawn from ``seed`` (Flax's
     initializers; ``init=False`` keeps the model's current params, e.g.
     ones carried over from the JAX package), the optimizer's zero state,
     the EMA copy, and a generator on the model's device seeded with
-    ``seed`` for the steps' draws."""
+    ``seed`` for the steps' draws.
+
+    Under ``mesh`` the params must be equal on every rank (checked with a
+    broadcast checksum); then each rank keeps its blocks of the split
+    ones (``parallel.mesh.shard_params``), and the optimizer state and EMA
+    are made of the blocks."""
     if init:
         init_parameters(model, seed)
+    specs = {}
+    if mesh is not None:
+        mesh_lib.check_replicas_equal(model.parameters())
+        specs = mesh_lib.shard_params(model, mesh)
     device = next(model.parameters()).device
     tx = make_optimizer(config.learning_rate, config.grad_clip,
                         config.lr_gamma, config.lr_schedule_interval,
                         config.lr_warmup, adam_m_bf16=config.adam_m_bf16)
     generator = torch.Generator(device=device).manual_seed(seed)
     return TrainState.create(model, tx, generator, ema=config.ema,
-                             ema_mu=config.mu)
+                             ema_mu=config.mu, mesh=mesh, specs=specs)
 
 
 def _schedule(objective, sigmas):
@@ -106,32 +125,67 @@ def _schedule(objective, sigmas):
     return on
 
 
-def make_train_step(objective, sigmas, continuous_noise: bool):
+def _rank_draws(objective, sig, batch, generator, continuous_noise, draws,
+                mesh):
+    """This rank's rows of the global batch's draws: ``draws`` (global) as
+    given, or drawn from ``generator`` for the global batch. Without a
+    data axis, ``draws`` as given (None: the objective draws)."""
+    if mesh is None or mesh.data == 1:
+        return draws
+    rows = batch.shape[0]
+    if draws is None:
+        draws = losses_lib.draws_for(
+            objective, (rows * mesh.data, *batch.shape[1:]), sig, generator,
+            continuous_noise, batch.device, batch.dtype)
+    lo = mesh.data_index * rows
+    return tuple(None if d is None else torch.as_tensor(d)[lo:lo + rows]
+                 for d in draws)
+
+
+def make_loss_fn(objective, sigmas, continuous_noise: bool, mesh=None):
+    """``loss_fn(model, batch, generator, draws=None)``: the train step's
+    mean loss of this rank's rows (see ``make_train_step``)."""
+    schedule = _schedule(objective, sigmas)
+
+    def loss_fn(model, batch, generator, draws=None):
+        sig, kwargs = schedule(batch.device)
+        draws = _rank_draws(objective, sig, batch, generator,
+                            continuous_noise, draws, mesh)
+        return objective(batch, model, sig, generator, continuous_noise,
+                         "mean", draws=draws, **kwargs)
+
+    return loss_fn
+
+
+def make_train_step(objective, sigmas, continuous_noise: bool, mesh=None):
     """``train_step(state, batch, draws=None) -> (state, metrics)``.
 
     ``sigmas`` is the schedule: the betas for ``ddpm``, the noise levels for
     ``dsm`` and ``ssm``. ``draws`` replays pre-drawn draws (see each
     objective in ``diffusion/losses.py``); without it the step draws from
-    ``state.generator``.
+    ``state.generator``. Under ``mesh`` ``batch`` is this rank's rows and
+    ``draws`` the global batch's.
     """
-    schedule = _schedule(objective, sigmas)
+    loss_fn = make_loss_fn(objective, sigmas, continuous_noise, mesh)
 
     def train_step(state: TrainState, batch, draws=None):
-        sig, kwargs = schedule(batch.device)
-        loss = objective(batch, state.model, sig, state.generator,
-                         continuous_noise, "mean", draws=draws, **kwargs)
+        loss = loss_fn(state.model, batch, state.generator, draws)
         return state, state.descend(loss)
 
     return train_step
 
 
-def make_eval_step(objective, sigmas, continuous_noise: bool):
-    """``eval_step(model, batch, generator) -> summed loss``."""
+def make_eval_step(objective, sigmas, continuous_noise: bool, mesh=None):
+    """``eval_step(model, batch, generator) -> summed loss`` (this rank's
+    rows' under ``mesh``, with the global batch's draws, as the train
+    step)."""
     schedule = _schedule(objective, sigmas)
 
     @torch.no_grad()
     def eval_step(model, batch, generator=None, draws=None):
         sig, kwargs = schedule(batch.device)
+        draws = _rank_draws(objective, sig, batch, generator,
+                            continuous_noise, draws, mesh)
         return objective(batch, model, sig, generator, continuous_noise,
                          "sum", draws=draws, **kwargs)
 
@@ -148,6 +202,7 @@ def fit(model,
         input_shape,
         config: TrainConfig,
         model_dir: Optional[str] = None,
+        mesh=None,
         seed: int = 0,
         snapshot_callback: Optional[Callable] = None,
         step_callback: Optional[Callable] = None):
@@ -162,18 +217,22 @@ def fit(model,
             of numpy batches per epoch.
         input_shape: per-example shape, e.g. (32, 42); the JAX signature's,
             where the model's shapes come from its init.
+        mesh: a ``parallel.mesh.Mesh`` to train over (each rank's data
+            iterables yield its rows), or None for one rank.
         snapshot_callback, step_callback: see ``loop.run_loop``.
 
     Returns:
         The final TrainState.
     """
     del input_shape
-    state = create_train_state(model, config, seed)
+    state = create_train_state(model, config, seed, mesh=mesh)
     log_lib.report_params(state.params)
     objective = objective_by_name(config.loss)
-    train_step = make_train_step(objective, sigmas, config.continuous_noise)
-    eval_step = make_eval_step(objective, sigmas, config.continuous_noise)
+    train_step = make_train_step(objective, sigmas, config.continuous_noise,
+                                 mesh)
+    eval_step = make_eval_step(objective, sigmas, config.continuous_noise,
+                               mesh)
     return loop_lib.run_loop(state, train_step, eval_step, train_data,
                              eval_data, config, model_dir=model_dir,
-                             snapshot_callback=snapshot_callback,
+                             mesh=mesh, snapshot_callback=snapshot_callback,
                              step_callback=step_callback)

@@ -9,6 +9,13 @@ port launches every step on its own, so ``scan_chunk`` changes nothing
 here: snapshots and checkpoints land at ``snapshot_freq`` and ``max_steps``
 either way, which is what the chunked JAX loop preserves. Capturing the
 step in a CUDA graph is queued in ``ROADMAP.md`` (D.2).
+
+Under a ``parallel.mesh.Mesh`` every rank runs the loop in step: the eval
+loss and its example count are summed over the data group, so early
+stopping decides alike everywhere; every rank resumes from the newest
+checkpoint and takes part in each save (the split leaves are gathered),
+and rank 0 alone writes checkpoints, summaries and the profile, as the
+JAX loop writes on process 0.
 """
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from smd_tpu_torch.parallel import mesh as mesh_lib
 from smd_tpu_torch.training.state import EarlyStopping
 from smd_tpu_torch.utils import checkpoints as ckpt_lib
 from smd_tpu_torch.utils import logging as log_lib
+from smd_tpu_torch.utils import profiling
 
 __all__ = ["evaluate", "run_loop", "device_prefetch"]
 
@@ -52,15 +61,21 @@ def device_prefetch(iterator, device, size: int = 2):
         yield queue.popleft()
 
 
-def evaluate(eval_step, model, dataset: Iterable, generator=None):
+def evaluate(eval_step, model, dataset: Iterable, generator=None,
+             mesh=None):
     """Mean per-example loss over a dataset; ``eval_step`` returns a summed
-    loss."""
+    loss. Under ``mesh`` the sum and the count are the data group's."""
     device = next(model.parameters()).device
     count, total = 0, 0.0
     for batch in dataset:
         batch = torch.as_tensor(np.asarray(batch), device=device)
         total += float(eval_step(model, batch, generator))
         count += batch.shape[0]
+    if mesh is not None and mesh.data > 1:
+        sums = torch.tensor([total, count], dtype=torch.float64,
+                            device=device)
+        torch.distributed.all_reduce(sums, group=mesh.data_group)
+        total, count = sums.tolist()
     return {"loss": total / max(count, 1)}
 
 
@@ -72,7 +87,8 @@ def run_loop(state,
              config,
              model_dir: Optional[str] = None,
              snapshot_callback: Optional[Callable] = None,
-             step_callback: Optional[Callable] = None):
+             step_callback: Optional[Callable] = None,
+             mesh=None):
     """Run the epoch/step loop; returns the final state.
 
     ``train_step(state, batch) -> (state, metrics)`` draws from
@@ -80,7 +96,9 @@ def run_loop(state,
     loss``. ``snapshot_callback(state, eval_metrics, sampling_step)`` runs at
     each snapshot, as in the JAX loop; ``step_callback(global_step,
     metrics)`` after each step, with the metrics as device tensors (read
-    nothing back there unless you mean to wait for the device).
+    nothing back there unless you mean to wait for the device). ``mesh``:
+    the ``parallel.mesh.Mesh`` the steps run over (see the module's
+    docstring), or None for one rank.
     """
     if getattr(config, "debug_nans", False):
         torch.autograd.set_detect_anomaly(True)
@@ -88,14 +106,19 @@ def run_loop(state,
     profile_start = getattr(config, "profile_start_step", 10)
     profiler = None
     early_stop = EarlyStopping(patience=1)
+    writes = mesh is None or mesh.rank == 0
     manager = train_writer = eval_writer = None
+    saved_step = None
     if model_dir is not None:
         manager = ckpt_lib.CheckpointManager(f"{model_dir}/ckpt",
-                                             keep=config.checkpoints_to_keep)
-        if config.resume and manager.latest_step is not None:
+                                             keep=config.checkpoints_to_keep,
+                                             write=writes)
+        saved_step = manager.latest_step
+        if config.resume and saved_step is not None:
             state = manager.restore_latest(state)
-        train_writer = log_lib.SummaryWriter(f"{model_dir}/train")
-        eval_writer = log_lib.SummaryWriter(f"{model_dir}/eval")
+        if writes:
+            train_writer = log_lib.SummaryWriter(f"{model_dir}/train")
+            eval_writer = log_lib.SummaryWriter(f"{model_dir}/eval")
 
     device = next(state.model.parameters()).device
     global_step = state.step
@@ -104,22 +127,21 @@ def run_loop(state,
 
     def handle_profiler():
         nonlocal profiler
-        if profile_steps <= 0 or model_dir is None:
+        if profile_steps <= 0 or model_dir is None or not writes:
             return
         if profile_start <= global_step < profile_start + profile_steps \
                 and profiler is None:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(
-                activities=activities,
-                on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                    f"{model_dir}/profile"))
+            profiler = profiling.Trace(f"{model_dir}/profile", device)
             profiler.start()
         elif profiler is not None and \
                 global_step >= profile_start + profile_steps:
             profiler.stop()
             profiler = None
+
+    def save(step):
+        nonlocal saved_step
+        manager.save(step, state)
+        saved_step = step
 
     def log_train(metrics, step_in_epoch, start_time):
         elapsed = time.time() - start_time
@@ -140,16 +162,16 @@ def run_loop(state,
         if at_snapshot or at_end:
             sampling_step += 1
             eval_metrics = evaluate(eval_step, state.model, eval_data(),
-                                    state.generator)
+                                    state.generator, mesh)
             log_lib.log_metrics(eval_metrics, global_step,
                                 config.max_steps or -1,
                                 summary_writer=eval_writer,
-                                verbose=config.verbose)
+                                verbose=config.verbose and writes)
             improved, early_stop = early_stop.update(eval_metrics["loss"])
 
             if manager is not None and config.save_ckpt and \
                     (not config.early_stopping or improved):
-                manager.save(global_step, state)
+                save(global_step)
 
             if snapshot_callback is not None:
                 snapshot_callback(state, eval_metrics, sampling_step)
@@ -177,7 +199,7 @@ def run_loop(state,
             if step_callback is not None:
                 step_callback(global_step, metrics)
 
-            if step % config.logging_freq == 0:
+            if step % config.logging_freq == 0 and writes:
                 log_train(metrics, step, start_time)
 
             stop = snapshot_or_end()
@@ -187,11 +209,13 @@ def run_loop(state,
     if profiler is not None:
         profiler.stop()
     if manager is not None:
-        if manager.latest_step != global_step:
-            manager.save(global_step, state, force=True)
+        if saved_step != global_step:
+            save(global_step)
         manager.wait()
         manager.close()
     for writer in (train_writer, eval_writer):
         if writer is not None:
             writer.flush()
+    # The last checkpoint is on disk before any rank returns.
+    mesh_lib.barrier(mesh)
     return state

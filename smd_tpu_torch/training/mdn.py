@@ -27,16 +27,21 @@ __all__ = ["create_train_state", "make_train_step", "make_eval_step", "fit"]
 
 
 def create_train_state(model, config: TrainConfig, seed: int = 0,
-                       init: bool = True) -> TrainState:
+                       init: bool = True, mesh=None) -> TrainState:
     """The diffusion harness's state without the EMA, whatever
-    ``config.ema`` says: the reference MDN checkpoints no EMA."""
+    ``config.ema`` says: the reference MDN checkpoints no EMA. ``mesh``:
+    see ``diffusion.create_train_state``."""
     return dtrainer.create_train_state(
-        model, dataclasses.replace(config, ema=False), seed, init)
+        model, dataclasses.replace(config, ema=False), seed, init, mesh)
 
 
-def make_train_step():
+def make_train_step(mesh=None):
     """``train_step(state, batch) -> (state, metrics)``: one step on the
-    teacher-forced NLL, averaged over every position of the batch."""
+    teacher-forced NLL, averaged over every position of the batch. The
+    objective draws nothing and the state averages the gradients over the
+    data group, so ``mesh`` changes nothing here: it is taken to match the
+    JAX signature."""
+    del mesh
 
     def train_step(state: TrainState, batch):
         pi, mu, log_sigma = state.model(batch)
@@ -46,10 +51,12 @@ def make_train_step():
     return train_step
 
 
-def make_eval_step():
+def make_eval_step(mesh=None):
     """``eval_step(model, batch, generator=None) -> NLL summed over the
     batch's positions, over the sequence length``: each example's mean NLL
-    a position, summed."""
+    a position, summed (this rank's rows' under a mesh; the loop sums the
+    ranks'). ``mesh`` is taken to match the JAX signature."""
+    del mesh
 
     @torch.no_grad()
     def eval_step(model, batch, generator=None):
@@ -66,6 +73,7 @@ def fit(model,
         input_shape,
         config: TrainConfig,
         model_dir: Optional[str] = None,
+        mesh=None,
         seed: int = 0,
         snapshot_callback: Optional[Callable] = None,
         step_callback: Optional[Callable] = None):
@@ -73,14 +81,14 @@ def fit(model,
 
     ``model`` is on the device to train on; its params are drawn anew from
     ``seed``. ``input_shape`` is the JAX signature's per-example shape,
-    where the model's shapes come from its init. Returns the final
-    TrainState.
+    where the model's shapes come from its init. ``mesh``: see
+    ``diffusion.fit``. Returns the final TrainState.
     """
     del input_shape
-    state = create_train_state(model, config, seed)
+    state = create_train_state(model, config, seed, mesh=mesh)
     log_lib.report_params(state.params)
-    return loop_lib.run_loop(state, make_train_step(), make_eval_step(),
-                             train_data, eval_data, config,
-                             model_dir=model_dir,
+    return loop_lib.run_loop(state, make_train_step(mesh),
+                             make_eval_step(mesh), train_data, eval_data,
+                             config, model_dir=model_dir, mesh=mesh,
                              snapshot_callback=snapshot_callback,
                              step_callback=step_callback)

@@ -9,6 +9,15 @@ generator's state included, so a resumed run draws what a straight run
 would have drawn. A checkpoint loaded on another kind of device (trained on
 the card, sampled on the CPU) keeps the new state's generator, whose state
 has another form there.
+
+Under a ``parallel.mesh.Mesh`` (``mesh``, with ``specs`` naming the
+parameters split over the model axis): ``descend`` averages the gradients
+(and the loss) over the data group through one flattened buffer, and the
+global norm sums the split leaves' squares over the model group, counting
+each replicated leaf once; clipping, Adam and the EMA then run alike on
+every rank. ``state_dict`` gathers the split leaves whole (a collective:
+every rank calls it) and ``load_state_dict`` keeps this rank's blocks, so
+a checkpoint restores under any grid and serves on one card.
 """
 from __future__ import annotations
 
@@ -19,7 +28,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from smd_tpu_torch.training.optimizer import Optimizer, global_norm
+from smd_tpu_torch.parallel import mesh as mesh_lib
+from smd_tpu_torch.training.optimizer import Optimizer
 
 __all__ = ["TrainState", "EarlyStopping"]
 
@@ -54,17 +64,20 @@ class TrainState:
     generator: torch.Generator
     step: int = 0
     ema_mu: float = 0.999
+    mesh: Optional[mesh_lib.Mesh] = None
+    specs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, model: nn.Module, tx: Optimizer, generator,
-               ema: bool = True, ema_mu: float = 0.999) -> "TrainState":
+               ema: bool = True, ema_mu: float = 0.999, mesh=None,
+               specs: Optional[Dict[str, tuple]] = None) -> "TrainState":
         params = dict(model.named_parameters())
         # The EMA starts as a copy of the params and stays float32.
         ema_params = ({n: p.detach().float().clone()
                        for n, p in params.items()} if ema else None)
         return cls(model=model, tx=tx, opt_state=tx.init(params),
                    ema_params=ema_params, generator=generator,
-                   ema_mu=ema_mu)
+                   ema_mu=ema_mu, mesh=mesh, specs=dict(specs or {}))
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -89,13 +102,40 @@ class TrainState:
     def descend(self, loss: torch.Tensor) -> dict:
         """One step on ``loss``: its gradient with respect to every param,
         their unclipped global norm, then ``apply_gradients``. Returns the
-        metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float)."""
+        metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float).
+        Under a data axis the gradients and the loss are the data group's
+        means."""
+        grads, loss = self.gradients(loss)
+        grad_norm = self.global_norm(grads)
+        lr = self.apply_gradients(grads, grad_norm)
+        return {"loss": loss, "grad": grad_norm, "lr": lr}
+
+    def gradients(self, loss: torch.Tensor):
+        """({name: gradient of ``loss``}, the loss detached); under a data
+        axis both are the data group's means, through one flattened
+        buffer. A split parameter's gradient is its block's."""
         params = self.params
         grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
-        grad_norm = global_norm(grads.values())
-        lr = self.apply_gradients(grads, grad_norm)
-        return {"loss": loss.detach(), "grad": grad_norm, "lr": lr}
+        loss = loss.detach()
+        mesh = self.mesh
+        if mesh is not None and mesh.data > 1:
+            *grads, loss = mesh_lib.all_reduce_mean(
+                [*grads, loss], mesh.data_group, mesh.data)
+        return dict(zip(params, grads)), loss
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradients, in float32: the split
+        leaves' squares summed over the model group, each replicated leaf
+        counted once."""
+        norms = torch._foreach_norm(list(grads.values()), 2,
+                                    dtype=torch.float32)
+        whole, split = [norms[0].new_zeros(())], [norms[0].new_zeros(())]
+        for name, norm in zip(grads, norms):
+            (split if name in self.specs else whole).append(norm)
+        sharded = torch.stack(split).square().sum()
+        if self.specs:
+            torch.distributed.all_reduce(sharded, group=self.mesh.model_group)
+        return torch.sqrt(torch.stack(whole).square().sum() + sharded)
 
     @property
     def sampling_params(self) -> Dict[str, torch.Tensor]:
@@ -104,18 +144,41 @@ class TrainState:
             return self.ema_params
         return {n: p.detach() for n, p in self.params.items()}
 
+    def _by_leaf(self, tree, fn):
+        """``tree`` ({name: tensor}, or the optimizer state's nested dicts of
+        them) with ``fn(tensor, spec)`` applied to each split leaf."""
+        if not self.specs or tree is None:
+            return tree
+        return {k: (self._by_leaf(v, fn) if isinstance(v, dict) else
+                    fn(v, self.specs[k]) if k in self.specs else v)
+                for k, v in tree.items()}
+
     def state_dict(self) -> dict:
+        """The whole state; the split leaves gathered whole (a collective
+        under a model axis: every rank of the group calls it)."""
+        def gather(tree):
+            return self._by_leaf(tree, lambda t, spec: mesh_lib.gather_leaf(
+                t, spec, self.mesh))
+
         return {"step": self.step,
-                "params": {n: p.detach() for n, p in self.params.items()},
-                "opt_state": self.opt_state,
-                "ema_params": self.ema_params,
+                "params": gather({n: p.detach()
+                                  for n, p in self.params.items()}),
+                "opt_state": gather(self.opt_state),
+                "ema_params": gather(self.ema_params),
                 "generator": self.generator.get_state(),
                 "generator_device": self.generator.device.type}
 
     def load_state_dict(self, saved: dict) -> "TrainState":
+        """Load a whole state (any grid's), keeping this rank's blocks of
+        the split leaves."""
+        def blocks(tree):
+            return self._by_leaf(tree, lambda t, spec: mesh_lib.slice_leaf(
+                t, spec, self.mesh))
+
+        params = blocks(saved["params"])
         with torch.no_grad():
             for n, p in self.params.items():
-                p.copy_(saved["params"][n])
+                p.copy_(params[n])
         device = next(self.model.parameters()).device
 
         def to_device(tree):
@@ -123,9 +186,9 @@ class TrainState:
                 return {k: to_device(v) for k, v in tree.items()}
             return tree.to(device) if torch.is_tensor(tree) else tree
 
-        self.opt_state = to_device(saved["opt_state"])
+        self.opt_state = to_device(blocks(saved["opt_state"]))
         if self.ema_params is not None:
-            self.ema_params = to_device(saved["ema_params"])
+            self.ema_params = to_device(blocks(saved["ema_params"]))
         if saved["generator_device"] == self.generator.device.type:
             self.generator.set_state(saved["generator"])
         self.step = int(saved["step"])

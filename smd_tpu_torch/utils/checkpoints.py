@@ -6,7 +6,9 @@ the port keeps the same interface over ``torch.save``: one file a step,
 is not Orbax's, so neither package reads the other's checkpoints. A save
 writes a temporary file and renames it, so a checkpoint is either whole or
 absent, as Orbax commits atomically. Saves are synchronous, so ``wait`` and
-``close`` have nothing to do.
+``close`` have nothing to do. Across ranks every rank calls ``save`` (the
+state's ``state_dict`` may gather split parameters) and the manager made
+with ``write=True``, rank 0's, writes.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 class CheckpointManager:
     """Save and restore a train state by step, keeping the newest ``keep``."""
 
-    def __init__(self, directory: str, keep: int = 50):
+    def __init__(self, directory: str, keep: int = 50, write: bool = True):
         self._dir = os.path.abspath(os.path.expanduser(directory))
         self._keep = keep
+        self._write = write
         os.makedirs(self._dir, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -38,11 +41,15 @@ class CheckpointManager:
                       if m)
 
     def save(self, step: int, state: Any, force: bool = False):
-        """Write ``state.state_dict()`` as step ``step``; ``force`` is
-        accepted for the interface (every save is written)."""
+        """Write ``state.state_dict()`` as step ``step`` (taken on every
+        rank, written where ``write``); ``force`` is accepted for the
+        interface (every save is written)."""
         del force
+        saved = state.state_dict()
+        if not self._write:
+            return
         tmp = self._path(step) + ".tmp"
-        torch.save(state.state_dict(), tmp)
+        torch.save(saved, tmp)
         os.replace(tmp, self._path(step))
         for old in self.all_steps()[:-self._keep]:
             os.remove(self._path(old))

@@ -41,9 +41,13 @@ class _Unpickler(pickle.Unpickler):
 
 
 def save(obj, path):
+    """Pickle ``obj`` to ``path`` through a temporary file renamed into
+    place, so that a reader (another rank) finds the whole file or none."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         pickle.dump(obj, f, protocol=4)
+    os.replace(tmp, path)
     log.info("Saved to %s", path)
 
 

@@ -157,8 +157,9 @@ def test_train_ncsn_needs_a_gpu_or_device_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_ncsn.main([*base, "--snapshot_sampling"])
     # --distill and --snapshot_sampling run (tests/test_torch_distill.py,
-    # tests/test_torch_metrics.py); this is not ported.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tests/test_torch_metrics.py); a model axis needs as many ranks
+    # (tests/test_torch_parallel.py), and one rank raises JAX's mesh error.
+    with pytest.raises(ValueError, match="mesh 0x2 does not cover 1"):
         train_ncsn.main([*base, "--model_parallelism=2", "--device=cpu"])
 
 

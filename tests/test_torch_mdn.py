@@ -487,6 +487,6 @@ def test_clis_need_a_gpu_or_device_cpu(tmp_path, monkeypatch, repo_root):
     for main in (train_mdn.main, sample_mdn.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["prog", *argv])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh 0x2 does not cover 1"):
         train_mdn.main(["train_mdn", *argv, "--model_parallelism=2",
                         "--device=cpu"])

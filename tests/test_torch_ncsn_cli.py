@@ -129,6 +129,14 @@ def _write_encoded(root):
             payloads.append(pickle.dumps(m))
         (root / f"{split}.tfrecord-00000").write_bytes(
             records.frame_records(payloads))
+    # Decoded songs: each record a pickled (n, 90) one-hot token grid; the
+    # songs of fewer than 896 steps are dropped.
+    for split, lengths in (("train", (900, 1024, 700, 960)),
+                           ("eval", (1000,))):
+        payloads = [pickle.dumps(np.eye(90)[rng.integers(0, 90, n)])
+                    for n in lengths]
+        (root / f"decoded-{split}.tfrecord-00000").write_bytes(
+            records.frame_records(payloads))
 
 
 def _read(path):
@@ -163,7 +171,8 @@ def test_dataset_scripts_match_the_jax_scripts(tmp_path):
     _write_encoded(encoded)
     modes = {"flatten": ["--mode=flatten", "--shard_size=16"],
              "sequences": ["--mode=sequences", "--context_length=2",
-                           "--stride=1", "--shard_size=1000"]}
+                           "--stride=1", "--shard_size=1000"],
+             "decoded": ["--mode=decoded", "--shard_size=2"]}
     fits = {"slice": ["--transform=slice", "--keep_dims=8"],
             "dim_weights": ["--transform=dim_weights"]}
     _run_jax_script("transform_encoded_data", [
@@ -177,9 +186,10 @@ def test_dataset_scripts_match_the_jax_scripts(tmp_path):
                   f"--output_path={tmp_path}/ours-{m}", *args])
         names = sorted(os.listdir(tmp_path / f"jax-{m}"))
         assert names == sorted(os.listdir(tmp_path / f"ours-{m}"))
-        # flatten: 33 training latents in shards of 16.
+        # flatten: 33 training latents in shards of 16; decoded: 3 songs
+        # kept in shards of 2.
         assert names[0] == "eval-0000.tfrecord"
-        assert len(names) == (4 if m == "flatten" else 2)
+        assert len(names) == {"flatten": 4, "sequences": 2, "decoded": 3}[m]
         for name in names:
             ref, ours = (_read(tmp_path / f"{who}-{m}" / name)
                          for who in ("jax", "ours"))
@@ -191,6 +201,13 @@ def test_dataset_scripts_match_the_jax_scripts(tmp_path):
     # flatten drops the zero latents: 512-d records, the 1-seq flagfiles'.
     flat = _read(tmp_path / "ours-flatten" / "train-0000.tfrecord")
     assert list(flat[0]["input_shape"]) == [512]
+    # decoded: the serialized bool tensors (compared as bytes above) of
+    # 1024 padded steps.
+    tokens = _read(tmp_path / "ours-decoded" / "train-0000.tfrecord")
+    assert list(tokens[0]["input_shape"]) == [1024, 90]
+    grid = records.parse_tensor(tokens[0]["inputs"])
+    assert grid.dtype == bool and grid.shape == (1024, 90)
+    assert grid[900:, 0].all() and grid.sum() == 1024
     for name, args in fits.items():
         gct.main(["prog", f"--encoded_data={encoded}",
                   f"--output_path={tmp_path}/ours-fit", f"--name={name}",
@@ -201,5 +218,3 @@ def test_dataset_scripts_match_the_jax_scripts(tmp_path):
             ours = pickle.load(f)
         assert ours.dtype == ref.dtype
         np.testing.assert_array_equal(ours, ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ted.main(["prog", f"--encoded_data={encoded}", "--mode=decoded"])

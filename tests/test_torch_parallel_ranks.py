@@ -1,0 +1,144 @@
+"""The ranks of ``tests/test_torch_parallel.py``: gloo processes on the CPU.
+
+A spawned rank imports this module to find its function, so it imports
+torch, numpy and the port only (the test file imports JAX). ``run`` reads
+the case the test wrote (``case.pkl``: the narrow flagship's params in the
+Flax layout, a global batch, the JAX package's draws, the loop's batches,
+a dataset for the CLIs), takes every step the test asks for in one
+process group and writes what rank 0 saw to ``out.pkl``.
+"""
+import os
+import pickle
+import sys
+
+import torch
+import torch.distributed as dist
+
+from smd_tpu_torch.diffusion import losses, schedules
+from smd_tpu_torch.models import get_model
+from smd_tpu_torch.parallel import mesh as mesh_lib
+from smd_tpu_torch.training import diffusion as trainer
+from smd_tpu_torch.training import loop as loop_lib
+from smd_tpu_torch.utils.flax_params import load_flax_params
+
+
+def _numpy(tree):
+    return {k: _numpy(v) if isinstance(v, dict) else
+            (v.numpy() if torch.is_tensor(v) else v)
+            for k, v in tree.items()}
+
+
+def _model(case):
+    model = get_model("TransformerDDPM", device="cpu",
+                      data_channels=case["channels"], **case["kw"])
+    return load_flax_params(model, case["params"])
+
+
+def _step(case, config):
+    """One train step of the narrow flagship from the case's params on the
+    global batch with the JAX draws, over ``config``'s mesh."""
+    mesh = mesh_lib.make_mesh(config)
+    state = trainer.create_train_state(_model(case), trainer.TrainConfig(
+        **case["train_config"]), init=False, mesh=mesh)
+    sigmas = schedules.noise_schedule(*case["betas"])
+    batch = mesh_lib.shard_batch(torch.from_numpy(case["batch"]), mesh)
+    loss_fn = trainer.make_loss_fn(losses.diffusion_loss, sigmas, True, mesh)
+    grads, _ = state.gradients(loss_fn(state.model, batch, None,
+                                       case["draws"]))
+    grads = {n: (mesh_lib.gather_leaf(g, state.specs[n], mesh)
+                 if n in state.specs else g).numpy()
+             for n, g in grads.items()}
+    step = trainer.make_train_step(losses.diffusion_loss, sigmas, True, mesh)
+    state, metrics = step(state, batch, draws=case["draws"])
+    saved = state.state_dict()
+    return {"grads": grads, "params": _numpy(saved["params"]),
+            "ema": _numpy(saved["ema_params"]),
+            "loss": float(metrics["loss"]), "grad": float(metrics["grad"]),
+            "split": sorted(state.specs),
+            "shapes": {n: tuple(p.shape) for n, p in state.params.items()}}
+
+
+def _loop(case, model_dir, config, max_steps):
+    """``run_loop`` over ``config``'s mesh, each rank on its rows of the
+    loop's global batches; returns the whole final state."""
+    mesh = mesh_lib.make_mesh(config)
+    cfg = trainer.TrainConfig(**case["loop_config"], max_steps=max_steps)
+    state = trainer.create_train_state(_model(case), cfg, seed=3,
+                                       init=False, mesh=mesh)
+    sigmas = schedules.noise_schedule(*case["betas"])
+    rows = lambda batches: [mesh_lib.shard_batch(b, mesh)  # noqa: E731
+                            for b in batches]
+    state = loop_lib.run_loop(
+        state, trainer.make_train_step(losses.diffusion_loss, sigmas, True,
+                                       mesh),
+        trainer.make_eval_step(losses.diffusion_loss, sigmas, True, mesh),
+        lambda: iter(rows(case["loop_train"])),
+        lambda: iter(rows(case["loop_eval"])), cfg, model_dir=model_dir,
+        mesh=mesh)
+    saved = state.state_dict()
+    return {"step": state.step, "params": _numpy(saved["params"]),
+            "files": sorted(os.listdir(f"{model_dir}/ckpt"))}
+
+
+def _clis(case, work):
+    """``train_ncsn`` on a model axis of 2 and ``train_mdn`` on a data axis
+    of 2, both in the running group (each rank reads its shard)."""
+    from smd_tpu_torch import train_mdn, train_ncsn
+    common = [f"--dataset={case['dataset']}",
+              "--slice_ckpt=checkpoints/slice-mel-512.pkl",
+              "--num_layers=1", "--num_heads=2", "--mlp_dims=32",
+              "--batch_size=4", "--device=cpu", "--snapshot_freq=2",
+              "--max_steps=3"]
+    ncsn = train_ncsn.main(["train_ncsn",
+                            "--flagfile=configs/ddpm-mel-32seq-512.cfg",
+                            f"--model_dir={work}/ncsn", "--num_sigmas=20",
+                            "--model_parallelism=2", *common])
+    mdn = train_mdn.main(["train_mdn",
+                          "--flagfile=configs/mdn-mel-32seq-512.cfg",
+                          f"--model_dir={work}/mdn", "--mdn_components=3",
+                          *common])
+    return {"ncsn": (ncsn.step, sorted(ncsn.specs), ncsn.mesh.shape),
+            "mdn": (mdn.step, sorted(mdn.specs), mdn.mesh.shape)}
+
+
+def xla_embedding(freqs):
+    """The port's sinusoidal embedding on XLA's float32 frequency tables
+    (``freqs``: {channels // 2: table}), as ``test_torch_ncsn_models``'s
+    ``xla_frequencies`` fixture makes it: torch's exp and XLA's differ by
+    an ulp in a few frequencies, which the x5000 noise encoding makes
+    1e-4."""
+    def embedding(positions, channels):
+        table = torch.from_numpy(freqs[channels // 2]).to(positions.device)
+        emb = positions.float()[:, None] * table[None, :]
+        emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+        if channels % 2:
+            emb = torch.nn.functional.pad(emb, (0, 1))
+        return emb
+    return embedding
+
+
+def run(rank, world, port, work):
+    # As on the card, which has tensorboard and no TensorFlow: the summary
+    # writer takes tensorboard's own stub (importing TensorFlow takes 10 s).
+    sys.modules["tensorflow"] = None
+    from smd_tpu_torch.models import blocks
+    torch.set_num_threads(1)   # tiny shapes; the test workers share the cores
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        with open(f"{work}/case.pkl", "rb") as f:
+            case = pickle.load(f)
+        blocks.sinusoidal_embedding = xla_embedding(case["xla_freqs"])
+        out = {}
+        for name, config in (("dp", mesh_lib.MeshConfig(data=2, model=1)),
+                             ("tp", mesh_lib.MeshConfig(data=1, model=2))):
+            out[name] = _step(case, config)
+            # Trained 4 steps with checkpoints at 2 and 4, then resumed to 6.
+            out[f"loop_{name}"] = [_loop(case, f"{work}/loop-{name}", config,
+                                         steps) for steps in (4, 6)]
+        out["clis"] = _clis(case, work)
+        if rank == 0:
+            with open(f"{work}/out.pkl", "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
