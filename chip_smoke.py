@@ -91,7 +91,10 @@ Phases, one flushed line each with its seconds:
     ``progressive_distill`` 8 -> 4 -> 2 (20 steps a stage; the teacher
     twice and the student once a step: 18 attention and 12 film launches)
     and 20 ``consistency_distill`` steps (N=32; teacher twice, target,
-    student: 24 and 16 a step); every logged loss finite; the 2-step and
+    student: 24 and 16 a step), both at their default ``scan_chunk`` (50):
+    each stage's steps one chunk, the step captured in a CUDA graph once
+    a stage after 2 eager warm-up steps (whose launches count) and
+    replayed; every logged loss finite; the 2-step and
     1-step students' samples finite; the distillation loss's gradient
     through the kernels against the plain versions at three draw seeds,
     with and without the x0 clip, the worst and the median parameter
@@ -171,8 +174,10 @@ Phases, one flushed line each with its seconds:
 24. codec training and the quality path. (a) ``train_musicvae.main`` at
     the shipped ``melody-2-big`` width (BiLSTM-2048, 3 x 2048, 512-d) on a
     seeded corpus of 64 songs from ``make_melody_corpus``: batch 64, 200
-    steps, scheduled sampling 0.2, evaluations every 50 steps, float32 on
-    the card; every ELBO finite, the last 20 steps' mean below the first
+    steps in chunks of 25 (its default ``--scan_chunk``: one step captured
+    in a CUDA graph, replayed), scheduled sampling 0.2, evaluations every
+    50 steps, float32 on the card; every ELBO finite, the last 20 steps'
+    mean below the first
     step's; the float16 artifact loaded by ``TrainedMusicVAE`` on the card;
     one narrow train step on the card against the CPU with the same draws
     (CODEC_STEP_RTOL). (b) ``eval_codec.main`` on the artifact over 64
@@ -203,6 +208,23 @@ Phases, one flushed line each with its seconds:
     (d) ``dryrun_multichip(4)``: a 2 x 2 grid. On one card the ranks share
     it over gloo with CUDA tensors, and say so; with a card a rank, NCCL.
     The film and attention launches of (b) join their records' counts.
+
+26. captured training chunks: five trainers at full width (the fused
+    flagship at bf16 and the standard one in float32 on 64 x 32x42, the
+    MDN on 128 x 32x42, a progressive-distillation stage 8 -> 4 of the
+    fused flagship, the codec ``melody-2-big`` at batch 64 with scheduled
+    sampling 0.2), each from one seeded state: 8 steps as one chunk (the
+    step captured in a CUDA graph, ``training/graphs.py``, and replayed)
+    against 8 eager steps from the same state and generator state, twice
+    (the capturing chunk and a replay of the cached graph): params, EMA,
+    Adam state and losses bit-equal, or within CHUNK_SPREAD_FACTOR times
+    two eager runs' spread, and the generator where the eager steps leave
+    it; the film and attention launches of the chunk those of the eager
+    steps (8 x (6, 4) fused, 8 x (18, 12) distillation); a planted fault,
+    a chunk whose replays all read slot 0's batch, must read beyond the
+    limit. Wall ms a step, host launches a step, device-busy ms, idle
+    share and peak memory, eager against captured, beside the card. The
+    chunks' film and attention launches join their records' counts.
 
 Before each model call, each 1000-step serve and each training run every
 launch count is set to 0, and after it every count is read and checked.
@@ -976,12 +998,9 @@ def _side_counts():
 
 
 def _reset_counts():
-    from smd_tpu_torch.ops import fused_attention as fat
-    from smd_tpu_torch.ops import quant_matmul as qmm
-    for w in _wrappers():
-        w.launches = 0
-    fat.fused_ln_attention.tc_launches = 0
-    qmm.transpose_weight.launches = 0
+    from smd_tpu_torch.training import graphs
+    for obj, attr in graphs.launch_counters():
+        setattr(obj, attr, 0)
 
 
 def phase_model(model, model_fn, layout, batch=SERVE_BATCH,
@@ -1361,7 +1380,7 @@ FEWSTEP = (("ddim", dict(ddim_steps=50), 50),
 # one. Readings: study_torch_tolerances.py.
 CALL_RTOL = 2e-2
 CHAIN_RTOL = 0.1
-DISTILL_STAGE_STEPS, CD_STEPS, DISTILL_LOG_EVERY = 20, 20, 5
+DISTILL_STAGE_STEPS, CD_STEPS = 20, 20
 # The progressive-distillation loss's gradient through the kernels against
 # the plain versions (the teacher through each), for each draw seed, with
 # and without the x0 clip: (worst parameter, median parameter), each
@@ -1545,7 +1564,7 @@ def phase_distill(state, smi):
     against the plain versions."""
     from smd_tpu_torch import cli
     from smd_tpu_torch.sampling import generate
-    from smd_tpu_torch.training import consistency, distill
+    from smd_tpu_torch.training import consistency, distill, graphs
     model = _fused_from(state)
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     train_ds, _ = cli.dataset_from_flags()
@@ -1568,16 +1587,19 @@ def phase_distill(state, smi):
             fail(f"the {sampling} student's samples are not finite")
         return out
 
-    for name, run, steps in (
+    # At their default scan_chunk (50), each stage's steps are one chunk:
+    # the step captured once a stage (after graphs.WARMUP_STEPS eager
+    # steps, whose launches count) and replayed.
+    for name, run, steps, graphs_made in (
             ("progressive", lambda log: distill.progressive_distill(
                 model, params, betas, _endless(batches), start_steps=8,
                 end_steps=2, steps_per_stage=DISTILL_STAGE_STEPS,
-                scan_chunk=DISTILL_LOG_EVERY, log_fn=log),
-             3 * DISTILL_STAGE_STEPS),
+                log_fn=log),
+             3 * DISTILL_STAGE_STEPS, 3),
             ("consistency", lambda log: consistency.consistency_distill(
                 model, params, betas, _endless(batches), num_segments=32,
-                steps=CD_STEPS, scan_chunk=DISTILL_LOG_EVERY, log_fn=log),
-             CD_STEPS)):
+                steps=CD_STEPS, log_fn=log),
+             CD_STEPS, 1)):
         losses = []
         torch.cuda.synchronize()
         _reset_counts()
@@ -1586,8 +1608,10 @@ def phase_distill(state, smi):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / steps
         counts.append(_counts())
-        _check_launches(f"{steps} {name} distillation steps", counts[-1],
-                        tuple(steps * CALLS_PER_STEP[name] * n
+        launched = steps + graphs.WARMUP_STEPS * graphs_made
+        _check_launches(f"{steps} {name} distillation steps ({graphs_made} "
+                        f"captured, {launched} steps launched)", counts[-1],
+                        tuple(launched * CALLS_PER_STEP[name] * n
                               for n in per_call_launches("fused")))
         if not np.isfinite(losses).all():
             fail(f"non-finite {name} distillation loss: {losses}")
@@ -1598,9 +1622,10 @@ def phase_distill(state, smi):
         else:
             sample = serve(out["params"], out["grid"], "consistency", 1)
         say(f"{name} distillation, fused bf16, batch {batches[0].shape[0]}: "
-            f"{steps} steps at {ms:.3f} ms/step (wall, stages and copies "
-            f"included; batches on the card), losses logged every "
-            f"{DISTILL_LOG_EVERY} {[round(x, 4) for x in losses]}, "
+            f"{steps} steps at {ms:.3f} ms/step (wall, stages, copies and "
+            f"{graphs_made} captures included; batches on the card), "
+            f"losses logged at each chunk's end "
+            f"{[round(x, 4) for x in losses]}, "
             f"launches {counts[-1]} on {smi}; its "
             f"{'2-step' if name == 'progressive' else '1-step'} sample of "
             f"{SERVE_BATCH} in [{float(sample.min()):.3f}, "
@@ -2354,47 +2379,20 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
-def _busy_us(intervals):
-    """Length of the union of [start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s >= end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
-def trace_summary(prof):
-    """(device events, device-busy us, span us, idle share) of a
-    ``torch.profiler`` trace: busy is the union of the device events'
-    intervals, the span runs from the first event to the last, host or
-    device, and the idle share is 1 - busy / span."""
-    device, spans = [], []
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            device.append(evt)
-        spans.append((evt.time_range.start, evt.time_range.end))
-    if not device:
-        fail("the profiler recorded no device time")
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in device])
-    span = max(e for _, e in spans) - min(s for s, _ in spans)
-    return device, busy, span, 1 - busy / span
-
-
 def _profile(fn, steps):
     """(device operations a step, device-busy ms a step, profiled ms a
-    step, idle share) of ``fn`` under ``torch.profiler``."""
+    step, idle share, host launches a step) of ``fn`` under
+    ``torch.profiler``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    from smd_tpu_torch.utils import profiling
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    device, busy, span, idle = trace_summary(prof)
-    return len(device) / steps, busy / 1e3 / steps, span / 1e3 / steps, idle
+    device, busy, span, idle = profiling.trace_summary(prof)
+    return (len(device) / steps, busy / 1e3 / steps, span / 1e3 / steps,
+            idle, profiling.host_launches(prof) / steps)
 
 
 def _tokens_until_close(ours, ref, logits, gumbel):
@@ -2621,7 +2619,7 @@ def phase_codec(tmp, smi):
         mu32 = rates["float32"][0]
         _codec_bf16_check(codec.model, bf16, x, smi)
         for batch in (64, n_chunks):
-            ops, busy, span, idle = _profile(lambda: codec.model.decode(
+            ops, busy, span, idle, _ = _profile(lambda: codec.model.decode(
                 mu32[:batch], CODEC_TEMPERATURE, generator=gen),
                 cfg.max_seq_len)
             say(f"codec float32 decode of {batch} chunks under the "
@@ -3019,6 +3017,7 @@ def _codec_step_profile(path, steps=3):
     from smd_tpu_torch.codec import musicvae as mv
     from smd_tpu_torch.training import musicvae as mvtrain
     from smd_tpu_torch.utils import io as io_lib
+    from smd_tpu_torch.utils import profiling
     bundle = io_lib.load(path)
     cfg = mv.normalize_config(bundle["config"])
     model = mv.build_musicvae(cfg, bundle["params"], device="cuda").train()
@@ -3040,9 +3039,10 @@ def _codec_step_profile(path, steps=3):
     with torch.profiler.profile(activities=acts) as prof:
         run(steps)
         torch.cuda.synchronize()
-    device, busy, span, idle = trace_summary(prof)
-    products = _busy_us([(e.time_range.start, e.time_range.end)
-                         for e in device if "gemm" in e.name.lower()])
+    device, busy, span, idle = profiling.trace_summary(prof)
+    products = profiling.busy_us([(e.time_range.start, e.time_range.end)
+                                  for e in device
+                                  if "gemm" in e.name.lower()])
     return (len(device) / steps, busy / 1e3 / steps, span / 1e3 / steps,
             idle, products / 1e3 / steps)
 
@@ -3609,6 +3609,312 @@ def phase_dryrun_multichip(smi):
         f"{result}; on {smi}")
 
 
+# Captured training chunks (phase 26): each trainer's step captured in a
+# CUDA graph (smd_tpu_torch/training/graphs.py) and replayed CHUNK_STEPS
+# times, against as many eager steps from the same state and generator
+# state, at full width: the fused flagship at bf16 and the standard one in
+# float32 on 64 x 32x42, the MDN on 128 x 32x42, a progressive-distillation
+# stage (8 -> 4) of the fused flagship, and the codec at melody-2-big width
+# on batch 64. profile_torch_train.py builds the same trainers.
+CHUNK_STEPS = 8
+CHUNK_PROFILE_STEPS = 2     # steps under the profiler, eager and captured
+CHUNK_MODES = ("fused", "fp32", "mdn", "distill", "codec")
+TRAIN_BATCH = {"fp32": 64, "mixed": 64, "fused": 64, "distill": 64,
+               "mdn": 128, "codec": 64}
+# The codec's chunk draws its scheduled-sampling tokens at every step (the
+# probability a tensor, as JAX's scan takes it); the eager step draws them
+# where the probability is above 0, so both run at a constant 0.2.
+CHUNK_SS = 0.2
+# A captured chunk against the eager steps: bit-equal where two eager runs
+# from the same state are; else within CHUNK_SPREAD_FACTOR times their
+# spread (worst leaf's |a - b| / |b|, and the losses' largest difference).
+CHUNK_SPREAD_FACTOR = 4.0
+# melody-2-big (cat-mel_2bar_big), as phase 24 trains it.
+CODEC_BIG = dict(latent_dims=512, enc_units=2048, dec_units=(2048,) * 3,
+                 free_bits=48.0)
+
+
+class Trainer:
+    """One trainer at full width on the card: its step eager
+    (``step(batch) -> loss``) and its chunk (``chunk(batches) -> (K,)
+    losses``, a captured step replayed), the tensors both write, and
+    ``snapshot``/``restore`` of the whole state (tensors, counts,
+    generator). Modes: ``fp32``, ``mixed``, ``fused``, ``distill``,
+    ``mdn`` and ``codec``; ``batch`` defaults to TRAIN_BATCH's."""
+
+    def __init__(self, mode, batch=None, seed=0):
+        self.mode = mode
+        self.batch = batch or TRAIN_BATCH[mode]
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        if mode == "codec":
+            self._codec(seed, gen)
+        else:
+            self.batches = torch.rand(
+                (CHUNK_STEPS, self.batch, SEQ_LEN, CHANNELS), generator=gen,
+                device="cuda") * 2 - 1
+            self._diffusion(seed)
+            self.gen = self.state.generator
+        self.chunk_fn = self._chunk()
+
+    def _diffusion(self, seed):
+        from smd_tpu_torch.diffusion import losses, schedules
+        from smd_tpu_torch.models import get_model
+        from smd_tpu_torch.models.layers import init_parameters
+        from smd_tpu_torch.training import diffusion as trainer
+        betas = schedules.noise_schedule(1e-6, 0.01, 1000, "linear")
+        if self.mode == "mdn":
+            from smd_tpu_torch.training import mdn
+            model = init_parameters(get_model(
+                "TransformerMDN", device="cuda", data_channels=CHANNELS,
+                **MDN_WIDTH), seed)
+            self.state = mdn.create_train_state(
+                model, trainer.TrainConfig(learning_rate=3e-4), seed,
+                init=False)
+            self._step, self._chunk = mdn.make_train_step(), \
+                mdn.make_train_chunk
+            return
+        fused = self.mode in ("fused", "distill")
+        model = get_model("TransformerDDPM", device="cuda",
+                          data_channels=CHANNELS,
+                          dtype=torch.float32 if self.mode == "fp32" else
+                          torch.bfloat16, fused_attention=fused,
+                          fused_head=fused, **FLAGSHIP)
+        init_parameters(model, seed)
+        if fused:
+            model = model.to(torch.bfloat16)
+        self.state = trainer.create_train_state(
+            model, trainer.TrainConfig(learning_rate=1e-3,
+                                       ema=self.mode != "distill"), seed,
+            init=False)
+        if self.mode == "distill":
+            from smd_tpu_torch.training import distill
+            grid, mids = distill.halve_grid(distill.distill_grid(betas, 16))
+            teacher = {n: p.detach().clone()
+                       for n, p in model.named_parameters()}
+            self._step = distill.make_distill_step(model, teacher, grid,
+                                                   mids)
+            self._chunk = lambda: distill.make_distill_step(
+                model, teacher, grid, mids, chunk=True)
+        else:
+            self._step = trainer.make_train_step(losses.diffusion_loss,
+                                                 betas, True)
+            self._chunk = lambda: trainer.make_train_chunk(
+                losses.diffusion_loss, betas, True)
+
+    def _codec(self, seed, gen):
+        from smd_tpu_torch.codec import musicvae as mv
+        from smd_tpu_torch.training import musicvae as mvtrain
+        cfg = mv.MusicVAEConfig(**CODEC_BIG)
+        model = mv.build_musicvae(cfg, seed=seed, device="cuda")
+        model.train().requires_grad_(True)
+        opt = mvtrain.make_optimizer(1e-3, 200, 2000)
+        opt_state = opt.init(dict(model.named_parameters()))
+        self.batches = torch.randint(
+            0, cfg.depth, (CHUNK_STEPS, self.batch, cfg.max_seq_len),
+            generator=gen, device="cuda")
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.codec = (model, opt, opt_state)
+        self._chunk = lambda: mvtrain.make_train_chunk(
+            model, opt, opt_state, self.gen, scheduled_sampling=True)
+
+    def tensors(self):
+        if self.mode != "codec":
+            return self.state.tensors()
+        model, opt, opt_state = self.codec
+        return opt.tensors(dict(model.named_parameters()), opt_state)
+
+    def step(self, batch):
+        """One eager step; its loss."""
+        if self.mode == "codec":
+            from smd_tpu_torch.training import musicvae as mvtrain
+            model, opt, opt_state = self.codec
+            return mvtrain.train_step(model, opt, opt_state, batch, CHUNK_SS,
+                                      self.gen)[0]
+        return self._step(self.state, batch)[1]["loss"]
+
+    def chunk(self, batches):
+        """One chunk of ``len(batches)`` steps; its (K,) losses."""
+        if self.mode == "codec":
+            return self.chunk_fn(batches, [CHUNK_SS] * len(batches))["loss"]
+        return self.chunk_fn(self.state, batches)[1]["loss"]
+
+    def new_chunk(self):
+        """A chunk that captures anew (its first call)."""
+        self.chunk_fn.close()
+        self.chunk_fn = self._chunk()
+
+    def snapshot(self):
+        if self.mode == "codec":
+            counts = (self.codec[2]["count"], None)
+        else:
+            counts = (self.state.opt_state["count"], self.state.step)
+        return ([t.clone() for t in self.tensors()], counts,
+                self.gen.get_state())
+
+    def restore(self, snap):
+        tensors, (count, step), gen_state = snap
+        with torch.no_grad():
+            torch._foreach_copy_(self.tensors(), tensors)
+        if self.mode == "codec":
+            self.codec[2]["count"] = count
+        else:
+            self.state.opt_state["count"], self.state.step = count, step
+        self.gen.set_state(gen_state)
+
+    def close(self):
+        self.chunk_fn.close()
+
+
+def _leaf_gap(ours, ref):
+    """(worst leaf |ours - ref| / |ref| in norm, leaves not bit-equal)."""
+    worst, unequal = 0.0, 0
+    for a, b in zip(ours, ref):
+        if not torch.equal(a, b):
+            unequal += 1
+            worst = max(worst, float((a.float() - b.float()).norm() /
+                                     b.float().norm().clamp_min(1e-30)))
+    return worst, unequal
+
+
+def _chunk_run(trainer, snap, captured):
+    """From ``snap``: the K steps eager or as one chunk; (tensors after,
+    losses, generator state after, wall s, launch counts)."""
+    trainer.restore(snap)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    if captured:
+        losses = trainer.chunk(trainer.batches)
+    else:
+        losses = torch.stack([trainer.step(b) for b in trainer.batches])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ([t.clone() for t in trainer.tensors()], losses.float(),
+            trainer.gen.get_state(), seconds,
+            (*_counts(), _side_counts()[0]))
+
+
+def _chunk_profile(trainer, snap, captured):
+    """(device operations, device-busy ms, profiled ms, idle share, host
+    launches) a step of CHUNK_PROFILE_STEPS steps under
+    ``torch.profiler``, eager or as a chunk (the graph captured already)."""
+    trainer.restore(snap)
+    batches = trainer.batches[:CHUNK_PROFILE_STEPS]
+
+    def run():
+        if captured:
+            trainer.chunk(batches)
+        else:
+            for b in batches:
+                trainer.step(b)
+
+    return _profile(run, CHUNK_PROFILE_STEPS)
+
+
+@contextlib.contextmanager
+def _stale_slot():
+    """A planted fault: every replay of a chunk reads slot 0's batch."""
+    from smd_tpu_torch.training import graphs
+    body = graphs._Slots.body
+
+    def stale(self, step):
+        return body(self, lambda slot: step(
+            {**slot, "batch": self.inputs["batch"][0]}))
+
+    graphs._Slots.body = stale
+    try:
+        yield
+    finally:
+        graphs._Slots.body = body
+
+
+def phase_chunks(smi, modes=CHUNK_MODES):
+    """26: each trainer's captured chunk against its eager steps."""
+    from smd_tpu_torch.training import graphs
+    counts = []
+    for mode in modes:
+        t0 = time.perf_counter()
+        trainer = Trainer(mode)
+        snap = trainer.snapshot()
+        torch.cuda.reset_peak_memory_stats()
+        eager = _chunk_run(trainer, snap, False)
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        again = _chunk_run(trainer, snap, False)
+        spread = _leaf_gap(again[0], eager[0])[0]
+        loss_spread = float((again[1] - eager[1]).abs().max())
+        torch.cuda.reset_peak_memory_stats()
+        first = _chunk_run(trainer, snap, True)     # warm-up and capture
+        chunk_peak = torch.cuda.max_memory_allocated() / 1e9
+        captured = _chunk_run(trainer, snap, True)
+        limit = CHUNK_SPREAD_FACTOR * spread
+        loss_limit = CHUNK_SPREAD_FACTOR * loss_spread
+        for what, run in (("the capturing chunk", first),
+                          ("a replayed chunk", captured)):
+            gap, unequal = _leaf_gap(run[0], eager[0])
+            loss_gap = float((run[1] - eager[1]).abs().max())
+            if gap > limit or loss_gap > loss_limit:
+                fail(f"{mode}: {what} of {CHUNK_STEPS} steps differs from "
+                     f"as many eager steps: worst leaf {gap:.3e} "
+                     f"({unequal} leaves not bit-equal; limit {limit:.3e}), "
+                     f"losses {loss_gap:.3e} (limit {loss_limit:.3e})")
+            if not torch.equal(run[2], eager[2]):
+                fail(f"{mode}: {what} left the generator elsewhere than "
+                     "the eager steps")
+        if captured[4] != eager[4]:
+            fail(f"{mode}: a chunk of {CHUNK_STEPS} launched (attention, "
+                 f"film, w8a8, flash, tensor-core attention) {captured[4]}, "
+                 f"the eager steps {eager[4]}")
+        per_step = {"fused": per_call_launches("fused"),
+                    "distill": tuple(3 * n for n in
+                                     per_call_launches("fused"))}.get(
+                                         mode, (0, 0, 0, 0))
+        expected = tuple(CHUNK_STEPS * n for n in per_step)
+        if tuple(eager[4][:4]) != expected or eager[4][4] != eager[4][0]:
+            fail(f"{mode}: {CHUNK_STEPS} eager steps launched "
+                 f"{eager[4]}, expected {expected}, attention all on the "
+                 "tensor-core kernel")
+        counts.append(tuple(captured[4][:4]))
+        prof_eager = _chunk_profile(trainer, snap, False)
+        prof_chunk = _chunk_profile(trainer, snap, True)
+        # The planted fault: each replay reads slot 0's batch.
+        trainer.new_chunk()
+        with _stale_slot():
+            faulty = _chunk_run(trainer, snap, True)
+        trainer.close()
+        gap, unequal = _leaf_gap(faulty[0], eager[0])
+        if not gap > limit:
+            fail(f"{mode}: a chunk replaying slot 0's batch at every step "
+                 f"reads {gap:.3e} against the eager steps, within the "
+                 f"limit {limit:.3e}: the check cannot see it")
+        rows = []
+        for what, run, prof, peak in (("eager", again, prof_eager,
+                                       eager_peak),
+                                      ("captured", captured, prof_chunk,
+                                       chunk_peak)):
+            events, busy, _, idle, launches = prof
+            rows.append(
+                f"{what}: {1e3 * run[3] / CHUNK_STEPS:.3f} wall ms a step, "
+                f"{launches:.1f} host launches a step, {events:.0f} device "
+                f"operations, {busy:.3f} device-busy ms a step, idle "
+                f"{idle:.3f} ({CHUNK_PROFILE_STEPS} steps profiled), peak "
+                f"memory {peak:.2f} GB")
+        say(f"26 {mode}, batch {trainer.batch}: {CHUNK_STEPS} captured "
+            f"steps against {CHUNK_STEPS} eager ones from the same state: "
+            f"worst leaf {_leaf_gap(captured[0], eager[0])[0]:.3e}, losses "
+            f"{float((captured[1] - eager[1]).abs().max()):.3e} (two eager "
+            f"runs' spread {spread:.3e} and {loss_spread:.3e}; limits "
+            f"{limit:.3e}, {loss_limit:.3e}); the generator where the eager "
+            f"steps leave it; launches (attention, film, w8a8, flash, "
+            f"tensor-core) {captured[4]} as eager; the stale-slot fault "
+            f"reads {gap:.3e} ({unequal} leaves), caught; capture with "
+            f"{graphs.WARMUP_STEPS} warm-up steps and {CHUNK_STEPS} "
+            f"replays {first[3]:.2f} s; " + "; ".join(rows) +
+            f"; phase {time.perf_counter() - t0:.1f} s; on {smi}")
+        del trainer, snap, eager, again, first, captured, faulty
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -3701,6 +4007,8 @@ def main():
             phase_dryrun_multichip(smi)
         say(f"phase 25 (distributed training) took "
             f"{time.perf_counter() - t25:.1f} s")
+    with Phase("26 captured training chunks"):
+        served.extend(phase_chunks(smi))
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -121,10 +121,12 @@ def kind(name):
 def report(prof, steps, wall, smi, what, trace_dir=None, **meta):
     """Print wall and device-busy ms per step, the idle share, the device
     time by kind and the kernels by device time from a ``torch.profiler``
-    trace of ``steps`` steps, and the trace's op profile
-    (``utils.profiling``) where ``trace_dir`` holds it; the last line one
-    JSON object with them and ``meta``."""
-    device, busy, span, idle = chip_smoke.trace_summary(prof)
+    trace of ``steps`` steps, the host's launches a step (kernels, graph
+    replays, copies), and the trace's op profile (``utils.profiling``)
+    where ``trace_dir`` holds it; the last line one JSON object with them
+    and ``meta``, which it returns."""
+    device, busy, span, idle = profiling.trace_summary(prof)
+    launches = profiling.host_launches(prof) / steps
     per_kernel = defaultdict(lambda: [0, 0.0])
     for evt in device:
         per_kernel[evt.name][0] += 1
@@ -133,7 +135,8 @@ def report(prof, steps, wall, smi, what, trace_dir=None, **meta):
     print(f"{smi}; {what}, {steps} steps", flush=True)
     print(f"wall {wall * 1e3:.3f} ms/step unprofiled; profiled span "
           f"{span * 1e3:.3f} ms/step, device busy {busy * 1e3:.3f} ms/step, "
-          f"idle share {idle:.3f}")
+          f"idle share {idle:.3f}, {launches:.1f} host launches a step, "
+          f"{len(device) / steps:.1f} device operations a step")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     by_kind = defaultdict(lambda: [0.0, 0.0])
     for name, (calls, us) in rows:
@@ -151,17 +154,20 @@ def report(prof, steps, wall, smi, what, trace_dir=None, **meta):
         print("op profile (device time by launching operation):")
         print(profiling.format_op_profile(*profiling.op_profile(trace_dir),
                                           steps=steps))
-    print(json.dumps({
+    record = {
         "card": smi, **meta, "steps": steps,
         "wall_ms_per_step": wall * 1e3,
         "profiled_span_ms_per_step": span * 1e3,
         "device_busy_ms_per_step": busy * 1e3,
-        "idle_share": idle,
+        "idle_share": idle, "host_launches_per_step": launches,
+        "device_operations_per_step": len(device) / steps,
         "by_kind": {k: {"device_ms_per_step": ms, "calls_per_step": c}
                     for k, (ms, c) in by_kind.items()},
         "kernels": [{"name": n, "calls_per_step": c / steps,
                      "device_ms_per_step": us / 1e3 / steps}
-                    for n, (c, us) in rows[:25]]}), flush=True)
+                    for n, (c, us) in rows[:25]]}
+    print(json.dumps(record), flush=True)
+    return record
 
 
 if __name__ == "__main__":

@@ -1,33 +1,35 @@
 #!/usr/bin/env python3
 """Where the time of a training step goes on the card (smd_tpu_torch).
 
-    python3 profile_torch_train.py [--mode fp32|mixed|fused|distill|mdn]
-                                   [--batch 64] [--steps 20]
+    python3 profile_torch_train.py [--mode fp32|mixed|fused|distill|mdn|codec]
+                                   [--batch 64] [--steps 24] [--scan_chunk K]
 
-Trains the flagship TransformerDDPM of ``chip_smoke.py`` (6 layers, 8
-heads, embed 128, MLP 2048, 2 FiLM resblocks) on 32x42 latents with
-``training.diffusion.make_train_step`` (the DDPM loss, gradient, global-norm
-clip, Adam; T=1000 linear betas, LR 1e-3, no EMA, as
-``configs/ddpm-mel-32seq-512.cfg``), params drawn from seed 0, on random
-batches in [-1, 1] that lie on the card. The modes: ``fp32`` (the standard
-layout in float32), ``mixed`` (``--mixed_precision``: bf16 compute, float32
-params) and ``fused`` (the fused layout, params and compute bf16: the
-attention and film kernels forward, their plain versions' gradients
-backward), and ``distill`` (a progressive-distillation step of the fused
-layout at bf16, ``training.distill.make_distill_step`` on the 8-to-4 stage
-of an 8-step start: the teacher, a frozen copy, twice without a gradient,
-the student once with its gradient, clip and Adam), and ``mdn`` (the
-TransformerMDN of ``configs/mdn-mel-32seq-512.cfg``, float32, on its
-teacher-forced NLL with ``training.mdn.make_train_step``; the flagfile's
-batch is 128). After 5 warm-up steps
-it times ``--steps`` steps (host clock
-around a synchronised run), then traces as many under ``torch.profiler``,
-and prints wall and device-busy ms per step, the idle share, the device
-time by kind and the kernels by device time (``profile_torch_sampler.
-report``, with the op profile of the trace written to ``--trace_dir``);
-the last line is one JSON object with those numbers. Needs a CUDA device.
+Trains one of ``chip_smoke.Trainer``'s trainers at full width, params from
+seed 0, on seeded batches that lie on the card: the flagship
+TransformerDDPM of ``chip_smoke.py`` (6 layers, 8 heads, embed 128, MLP
+2048, 2 FiLM resblocks) on 32x42 with the DDPM loss, gradient, global-norm
+clip, Adam and the EMA (T=1000 linear betas, LR 1e-3), in ``fp32`` (the
+standard layout in float32), ``mixed`` (bf16 compute, float32 params) or
+``fused`` (the fused layout, params and compute bf16: the attention and
+film kernels forward, their plain versions' gradients backward);
+``distill`` (a progressive-distillation step of the fused layout on the
+8-to-4 stage: the teacher, a frozen copy, twice without a gradient, the
+student once); ``mdn`` (the TransformerMDN of
+``configs/mdn-mel-32seq-512.cfg``, float32, its teacher-forced NLL; batch
+128); ``codec`` (the MusicVAE ``melody-2-big`` at batch 64, the ELBO with
+scheduled sampling 0.2). After 5 warm-up steps it times ``--steps`` eager
+steps (host clock around a synchronised run), then traces as many under
+``torch.profiler``; with ``--scan_chunk`` K > 1 it does the same with the
+steps taken K at a time through the trainer's chunk (one step captured in
+a CUDA graph, ``training/graphs.py``, replayed K times; the capturing
+chunk is not timed). For each it prints wall and device-busy ms per step,
+the idle share, the host's launches a step, the device time by kind and
+the kernels by device time (``profile_torch_sampler.report``, with the op
+profile of each trace written under ``--trace_dir``); the last line is one
+JSON object with both records. Needs a CUDA device.
 """
 import argparse
+import json
 import time
 
 import torch
@@ -36,77 +38,75 @@ import chip_smoke
 from profile_torch_sampler import report
 from smd_tpu_torch.utils import profiling
 
-MODES = ("fp32", "mixed", "fused", "distill", "mdn")
+MODES = ("fp32", "mixed", "fused", "distill", "mdn", "codec")
 
 
-def _state(mode):
-    from smd_tpu_torch.models import get_model
-    from smd_tpu_torch.models.layers import init_parameters
-    from smd_tpu_torch.training import diffusion as trainer
-    if mode == "mdn":
-        model = get_model("TransformerMDN", device="cuda",
-                          data_channels=chip_smoke.CHANNELS,
-                          **chip_smoke.MDN_WIDTH)
-        return trainer.create_train_state(
-            init_parameters(model, 0),
-            trainer.TrainConfig(learning_rate=3e-4, ema=False), init=False)
-    fused = mode in ("fused", "distill")
-    model = get_model("TransformerDDPM", device="cuda",
-                      data_channels=chip_smoke.CHANNELS,
-                      dtype=torch.float32 if mode == "fp32" else
-                      torch.bfloat16, fused_attention=fused,
-                      fused_head=fused, **chip_smoke.FLAGSHIP)
-    init_parameters(model, 0)
-    if fused:
-        model = model.to(torch.bfloat16)
-    config = trainer.TrainConfig(learning_rate=1e-3, ema=False)
-    return trainer.create_train_state(model, config, init=False)
+def _batches(trainer, count):
+    """``count`` batches, the trainer's own (CHUNK_STEPS of them) in
+    turn."""
+    idx = torch.arange(count, device="cuda") % trainer.batches.shape[0]
+    return trainer.batches[idx]
+
+
+def _measure(run, steps, trace_dir):
+    """(wall seconds a step of ``run()``, its ``torch.profiler`` run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profiling.trace(trace_dir, "cuda") as prof:
+        run()
+    return wall, prof
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=MODES, default="fp32")
-    ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="the trainer's batch (chip_smoke.TRAIN_BATCH)")
+    ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--scan_chunk", type=int, default=1,
+                    help="also take the steps this many at a time through "
+                         "the captured chunk")
     ap.add_argument("--trace_dir", default="chiprun_out/profile-train",
-                    help="where the Chrome trace of the profiled steps goes")
+                    help="where the Chrome traces of the profiled steps go")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
-    from smd_tpu_torch.diffusion import losses, schedules
-    from smd_tpu_torch.training import diffusion as trainer
-    state = _state(args.mode)
-    betas = schedules.noise_schedule(1e-6, 0.01, 1000, "linear")
-    if args.mode == "distill":
-        from smd_tpu_torch.training import distill
-        grid, mids = distill.halve_grid(distill.distill_grid(betas, 16))
-        step = distill.make_distill_step(state.model, state.params, grid,
-                                         mids)
-    elif args.mode == "mdn":
-        from smd_tpu_torch.training import mdn
-        step = mdn.make_train_step()
-    else:
-        step = trainer.make_train_step(losses.diffusion_loss, betas, True)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    batches = [torch.rand(args.batch, chip_smoke.SEQ_LEN, chip_smoke.CHANNELS,
-                          generator=gen, device="cuda") * 2 - 1
-               for _ in range(args.steps)]
+    trainer = chip_smoke.Trainer(args.mode, args.batch)
+    what = f"train {args.mode}, batch {trainer.batch}"
+    batches = _batches(trainer, args.steps)
 
-    def run():
+    def eager():
         for b in batches:
-            step(state, b)
-        torch.cuda.synchronize()
+            trainer.step(b)
 
     for b in batches[:5]:
-        step(state, b)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    wall = (time.perf_counter() - t0) / args.steps
-    with profiling.trace(args.trace_dir, "cuda") as prof:
-        run()
-    report(prof, args.steps, wall, smi,
-           f"train {args.mode}, batch {args.batch}, 32x42",
-           trace_dir=args.trace_dir, mode=args.mode, batch=args.batch)
+        trainer.step(b)
+    wall, prof = _measure(eager, args.steps, f"{args.trace_dir}/eager")
+    records = {"eager": report(prof, args.steps, wall, smi,
+                               f"{what}, eager steps",
+                               trace_dir=f"{args.trace_dir}/eager",
+                               mode=args.mode, batch=trainer.batch)}
+    k = args.scan_chunk
+    if k > 1:
+        chunks = max(1, args.steps // k)
+        stacks = [_batches(trainer, k) for _ in range(chunks)]
+
+        def captured():
+            for stack in stacks:
+                trainer.chunk(stack)
+
+        trainer.chunk(stacks[0])   # warm-up and capture
+        wall, prof = _measure(captured, chunks * k,
+                              f"{args.trace_dir}/captured")
+        records["captured"] = report(
+            prof, chunks * k, wall, smi,
+            f"{what}, chunks of {k} captured steps",
+            trace_dir=f"{args.trace_dir}/captured", mode=args.mode,
+            batch=trainer.batch, scan_chunk=k)
+    trainer.close()
+    print(json.dumps(records), flush=True)
 
 
 if __name__ == "__main__":

@@ -223,9 +223,14 @@ def define_common_flags():
     F.DEFINE_integer("model_parallelism", 1,
                      "Size of the tensor-parallel mesh axis.")
     F.DEFINE_integer("scan_chunk", 1,
-                     "Steps per dispatch in the JAX package; the port "
-                     "launches each step on its own and keeps the same "
-                     "snapshot and checkpoint steps.")
+                     "Optimizer steps taken as one chunk (the JAX package's "
+                     "lax.scan dispatch): on the card one step captured in "
+                     "a CUDA graph and replayed this many times, on the CPU "
+                     "as many eager steps; snapshots, checkpoints and "
+                     "max_steps land where the per-step loop puts them, and "
+                     "logging is by chunk. 1 = one eager step at a time; "
+                     "more than 1 raises under --model_parallelism or "
+                     "torchrun, and with --remat on the card.")
     F.DEFINE_boolean("mixed_precision", False,
                      "bfloat16 compute with fp32 params.")
     F.DEFINE_boolean("adam_m_bf16", False,

@@ -334,7 +334,8 @@ class Decoder(nn.Module):
     noise and ``ss_mix`` (B, L, 1) the per-step choice: bools (True feeds
     the draw) or uniforms in [0, 1), a draw fed where ``u < ss_prob``, as
     ``jax.random.bernoulli`` decides; what is not given comes from
-    ``generator``.
+    ``generator``. A 0-d tensor ``ss_prob`` (a captured training step's)
+    always draws, as JAX's scanned step does, whatever its value.
     """
 
     def __init__(self, config: MusicVAEConfig,
@@ -375,22 +376,26 @@ class Decoder(nn.Module):
         # then the layer below's ``h``.
         weights = [cell.weights(self.dtype, carry[1].dtype)
                    for cell, carry in zip(layers, carries)]
-        sampled = targets is None or ss_prob > 0
+        # A tensor ss_prob (a captured step's) always takes the
+        # scheduled-sampling path: its value is not read on the host.
+        scheduled = targets is not None and (torch.is_tensor(ss_prob)
+                                             or ss_prob > 0)
+        sampled = targets is None or scheduled
         if sampled:
             if gumbel is None:
                 gumbel = gumbel_noise((B, length, cfg.depth), generator,
                                       z.device)
-            temp = torch.tensor(max(float(temperature), 1e-6),
-                                dtype=torch.float32, device=z.device)
+            temp = torch.full((), max(float(temperature), 1e-6),
+                              dtype=torch.float32, device=z.device)
         if targets is not None:
             targets = targets.to(self.dtype)
-            if ss_prob > 0:
+            if scheduled:
                 if ss_mix is None:
                     ss_mix = torch.rand((B, length, 1), generator=generator,
                                         device=z.device)
                 if ss_mix.dtype != torch.bool:
-                    ss_mix = ss_mix < torch.tensor(ss_prob,
-                                                   dtype=torch.float32)
+                    ss_mix = ss_mix < torch.as_tensor(ss_prob,
+                                                      dtype=torch.float32)
                 ss_mix = ss_mix.to(z.device)
         logits, samples = [], []
         for t in range(length):
@@ -409,7 +414,7 @@ class Decoder(nn.Module):
             if targets is None:
                 samples.append(idx)
                 token = draw
-            elif ss_prob > 0:
+            elif scheduled:
                 token = torch.where(ss_mix[:, t], draw, targets[:, t])
             else:
                 token = targets[:, t]

@@ -11,8 +11,12 @@ the JAX script's, with its names, defaults and help, plus ``--device``. The
 same ``--seed`` holds out the same chunks and draws the same batches as the
 JAX script: both come from one ``np.random.default_rng(seed)``, the batch
 indices ``--scan_chunk`` steps at a time. The JAX script runs those steps as
-one ``lax.scan`` dispatch; here the flag only groups the index draws, and
-each optimizer step is its own.
+one ``lax.scan`` dispatch (the flag's help, kept as the JAX script's, says
+so); here they are one chunk
+(``training.musicvae.make_train_chunk``): on the card one step captured in
+a CUDA graph and replayed ``--scan_chunk`` times, with the LR and the
+scheduled-sampling probability staged per step, on the CPU as many eager
+steps; ``--scan_chunk=1`` takes one eager step at a time.
 
 Held-out evaluation reports the teacher-forced token accuracy and the
 free-running round-trip accuracy (encode, decode the posterior mean at
@@ -337,6 +341,8 @@ def main(argv):
     can_eval = len(eval_data) >= B
     n = len(train_data)
     chunk = max(1, min(FLAGS.scan_chunk, FLAGS.log_every))
+    train_chunk = None if chunk == 1 else mvtrain.make_train_chunk(
+        model, opt, opt_state, generator, FLAGS.scheduled_sampling > 0)
     step, step_seconds = 0, 0.0
     losses, batch_indices = [], []
     # (best_metric, step, params) — see --keep_best.
@@ -354,11 +360,16 @@ def main(argv):
         k_steps = min(chunk, FLAGS.steps - step)
         idx = rng_np.integers(0, n, (k_steps, B))
         t_chunk = time.perf_counter()
-        for j, ss in enumerate(ss_probs(step, k_steps)):
+        if train_chunk is not None:
+            rows = train_chunk(train_data[idx], ss_probs(step, k_steps))
+            losses.append(rows["loss"])
+            loss, aux = rows["loss"][-1], {k: rows[k][-1]
+                                           for k in ("rec", "kl")}
+        else:
             loss, aux = mvtrain.train_step(model, opt, opt_state,
-                                           to_device(train_data[idx[j]]),
-                                           ss, generator)
-            losses.append(loss)
+                                           to_device(train_data[idx[0]]),
+                                           ss_probs(step, 1)[0], generator)
+            losses.append(loss.reshape(1))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         step_seconds += time.perf_counter() - t_chunk
@@ -380,6 +391,8 @@ def main(argv):
                 if FLAGS.keep_best and sel > best[0]:
                     best = (sel, step, snapshot())
             log.info("%s", msg)
+    if train_chunk is not None:
+        train_chunk.close()
 
     metrics = {}
     if can_eval:
@@ -419,7 +432,7 @@ def main(argv):
     log.info("Saved MusicVAE params to %s", FLAGS.output)
     return {"metrics": metrics, "eval_index": eval_index,
             "batch_indices": np.asarray(batch_indices),
-            "losses": torch.stack(losses).cpu().numpy(),
+            "losses": torch.cat(losses).cpu().numpy(),
             "step_seconds": step_seconds, "config": cfg,
             "output": FLAGS.output}
 

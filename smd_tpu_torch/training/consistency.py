@@ -18,6 +18,11 @@ epsilon models:
   the previous iterate), loaded into a frozen copy of the model at each
   step. A CD step launches the teacher twice, the target once and the
   student once; a CT step the target once and the student once.
+- With ``scan_chunk`` K > 1 the steps run K at a time, as JAX's
+  ``make_cd_scan`` and ``make_ct_scan``: one step captured in a CUDA graph
+  and replayed K times on the card, eagerly on the CPU
+  (``training/graphs.py``); the EMA and the target's copy of it are
+  written in place inside the graph.
 
 Sampling is ``samplers.consistency_dynamics``.
 """
@@ -30,11 +35,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from smd_tpu_torch.training import graphs
 from smd_tpu_torch.training.distill import (_bb, _index_and_noise, _levels,
                                             _optimizer, _snapshot,
-                                            ddim_jump, distill_grid,
-                                            frozen_copy, halve_grid,
-                                            run_steps, trainable_copy)
+                                            ddim_jump, descending,
+                                            distill_grid, frozen_copy,
+                                            halve_grid, run_steps,
+                                            trainable_copy)
 from smd_tpu_torch.training.state import TrainState
 
 __all__ = [
@@ -143,47 +150,68 @@ def consistency_training_loss(batch, student_fn, target_fn, grid,
     return (lam * _pseudo_huber(pred - tgt, huber_c)).mean()
 
 
-def make_cd_step(model, teacher_params, grid, mids,
-                 huber_c: Optional[float] = None, clip_x0: bool = True):
-    """``cd_step(state, batch, draws=None) -> (state, metrics)``: the
-    teacher (a frozen copy of ``model`` holding ``teacher_params``) twice
-    and the target (the state's EMA before the step) once, without a
-    gradient, then the student's loss, gradient, clip, Adam and EMA."""
+def _cd_loss_fn(model, teacher_params, grid, mids, huber_c, clip_x0):
+    """``loss_fn(state, batch, draws)``: the CD loss, the target network
+    loaded (in place) with the state's EMA before the step."""
     teacher = frozen_copy(model, teacher_params)
     target = copy.deepcopy(model).requires_grad_(False)
     device = next(model.parameters()).device
     grid, mids = _levels(grid, device), _levels(mids, device)
 
-    def cd_step(state: TrainState, batch, draws=None):
+    def loss_fn(state: TrainState, batch, draws=None):
         target.load_state_dict(state.ema_params)
-        loss = consistency_distillation_loss(
+        return consistency_distillation_loss(
             batch, state.model, target, teacher, grid, mids, state.generator,
             huber_c=huber_c, clip_x0=clip_x0, draws=draws)
-        return state, state.descend(loss)
 
-    return cd_step
+    return loss_fn
+
+
+def _ct_loss_fn(model, grid, huber_c, clip_x0, p_mean, p_std):
+    """``loss_fn(state, batch, draws)``: the CT loss, the target loaded as
+    ``_cd_loss_fn``'s."""
+    target = copy.deepcopy(model).requires_grad_(False)
+    grid = _levels(grid, next(model.parameters()).device)
+
+    def loss_fn(state: TrainState, batch, draws=None):
+        target.load_state_dict(state.ema_params)
+        return consistency_training_loss(
+            batch, state.model, target, grid, state.generator,
+            huber_c=huber_c, clip_x0=clip_x0, p_mean=p_mean, p_std=p_std,
+            draws=draws)
+
+    return loss_fn
+
+
+def make_cd_step(model, teacher_params, grid, mids,
+                 huber_c: Optional[float] = None, clip_x0: bool = True,
+                 chunk: bool = False):
+    """``cd_step(state, batch, draws=None) -> (state, metrics)``: the
+    teacher (a frozen copy of ``model`` holding ``teacher_params``) twice
+    and the target (the state's EMA before the step) once, without a
+    gradient, then the student's loss, gradient, clip, Adam and EMA. With
+    ``chunk`` the same steps K at a time (JAX's ``make_cd_scan``):
+    ``cd_chunk(state, batches, draws=None) -> (state, (K,) metrics)``, a
+    ``graphs.TrainChunk``."""
+    loss_fn = _cd_loss_fn(model, teacher_params, grid, mids, huber_c,
+                          clip_x0)
+    if chunk:
+        return graphs.TrainChunk(loss_fn, "consistency distillation step")
+    return descending(loss_fn)
 
 
 def make_ct_step(model, grid, huber_c: Optional[float] = None,
                  clip_x0: bool = True, p_mean: float = -1.1,
-                 p_std: float = 2.0):
+                 p_std: float = 2.0, chunk: bool = False):
     """``ct_step(state, batch, draws=None) -> (state, metrics)``: the
     target (the state's EMA before the step; with ``ema_mu=0`` the last
     iterate) once without a gradient, then the student's loss, gradient,
-    clip, Adam and EMA. The JAX package scans these steps
-    (``make_ct_scan``); the port launches each on its own."""
-    target = copy.deepcopy(model).requires_grad_(False)
-    grid = _levels(grid, next(model.parameters()).device)
-
-    def ct_step(state: TrainState, batch, draws=None):
-        target.load_state_dict(state.ema_params)
-        loss = consistency_training_loss(
-            batch, state.model, target, grid, state.generator,
-            huber_c=huber_c, clip_x0=clip_x0, p_mean=p_mean, p_std=p_std,
-            draws=draws)
-        return state, state.descend(loss)
-
-    return ct_step
+    clip, Adam and EMA. With ``chunk`` K at a time, as ``make_cd_step``
+    (JAX's ``make_ct_scan``)."""
+    loss_fn = _ct_loss_fn(model, grid, huber_c, clip_x0, p_mean, p_std)
+    if chunk:
+        return graphs.TrainChunk(loss_fn, "consistency training step")
+    return descending(loss_fn)
 
 
 def consistency_distill(model: nn.Module,
@@ -221,7 +249,7 @@ def consistency_distill(model: nn.Module,
     state = TrainState.create(trainable_copy(model, params), tx, generator,
                               ema=True, ema_mu=ema_mu)
     step_fn = make_cd_step(model, params, grid, mids, huber_c=huber_c,
-                           clip_x0=clip_x0)
+                           clip_x0=clip_x0, chunk=scan_chunk > 1)
     run_steps(state, step_fn, batches, steps,
               scan_chunk if scan_chunk > 1 else None,
               None if log_fn is None else
@@ -271,7 +299,8 @@ def consistency_train(model: nn.Module,
     for si, num_segments in enumerate(seg_schedule):
         grid = distill_grid(betas, num_segments, lam_max)
         step_fn = make_ct_step(model, grid, huber_c=huber_c,
-                               clip_x0=clip_x0, p_mean=p_mean, p_std=p_std)
+                               clip_x0=clip_x0, p_mean=p_mean, p_std=p_std,
+                               chunk=scan_chunk > 1)
         stage_steps = (steps - per_stage * (len(seg_schedule) - 1)
                        if si == len(seg_schedule) - 1 else per_stage)
         stage_steps = max(stage_steps, 0)

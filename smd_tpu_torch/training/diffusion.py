@@ -3,8 +3,11 @@
 The step: loss → gradient → the gradients' unclipped global norm → clip →
 Adam → float32 EMA, with the metrics ``loss``, ``grad`` and ``lr`` (as
 device tensors, except the LR, a float). The JAX package jits this into one
-program; here it is one eager step on the model's device. ``fit`` builds
-the state and hands it to ``loop.run_loop``.
+program; here it is one eager step on the model's device. Its chunk of K
+steps (``make_train_chunk``, JAX's ``lax.scan`` of the step) is the same
+step captured in a CUDA graph and replayed K times on the card
+(``training/graphs.py``), run eagerly on the CPU. ``fit`` builds the state
+and hands it to ``loop.run_loop``, with the chunk when ``scan_chunk > 1``.
 
 Under a ``parallel.mesh.Mesh`` (``mesh=``) each rank holds its rows of the
 global batch. The JAX step draws the noise of the global batch from one
@@ -24,14 +27,15 @@ import torch
 from smd_tpu_torch.diffusion import losses as losses_lib
 from smd_tpu_torch.models.layers import init_parameters
 from smd_tpu_torch.parallel import mesh as mesh_lib
+from smd_tpu_torch.training import graphs
 from smd_tpu_torch.training import loop as loop_lib
 from smd_tpu_torch.training.optimizer import make_optimizer
 from smd_tpu_torch.training.state import TrainState
 from smd_tpu_torch.utils import logging as log_lib
 
 __all__ = ["TrainConfig", "objective_by_name", "create_train_state",
-           "make_loss_fn", "make_train_step", "make_eval_step", "evaluate",
-           "fit"]
+           "make_loss_fn", "make_train_step", "make_train_chunk",
+           "make_eval_step", "evaluate", "fit"]
 
 OBJECTIVES = {
     "dsm": losses_lib.denoising_score_matching_loss,
@@ -74,8 +78,9 @@ class TrainConfig:
     profile_steps: int = 0
     profile_start_step: int = 10
     debug_nans: bool = False
-    # Steps a dispatch in the JAX package; the port launches each step on
-    # its own and keeps the same snapshot and checkpoint steps.
+    # Steps a chunk (JAX: one lax.scan dispatch; here, K replays of the
+    # step captured in a CUDA graph on the card, K eager steps on the CPU);
+    # snapshots and checkpoints land at the same steps either way.
     scan_chunk: int = 1
 
 
@@ -175,6 +180,25 @@ def make_train_step(objective, sigmas, continuous_noise: bool, mesh=None):
     return train_step
 
 
+def make_train_chunk(objective, sigmas, continuous_noise: bool, mesh=None):
+    """``train_chunk(state, batches, draws=None) -> (state, metrics)``: K
+    train steps on a (K, batch, ...) stack, each metric a (K,) row (row i
+    step i's), the LR and Adam's bias corrections staged per step
+    (``graphs.TrainChunk``): on the card the step is captured in a CUDA
+    graph once and replayed K times, on the CPU it runs K times. The steps
+    draw from ``state.generator`` as K eager steps would, or replay
+    ``draws`` (a tuple of (K, ...) stacks of the objective's draws). Under
+    ``mesh`` it raises: gloo's collectives cannot be captured (``ROADMAP.md``
+    queues the chunk under NCCL). ``remat`` cannot be captured either."""
+    if mesh is not None:
+        raise ValueError(loop_lib.MESH_CHUNK)
+    loss_fn = make_loss_fn(objective, sigmas, continuous_noise)
+    return graphs.TrainChunk(
+        lambda state, batch, draws: loss_fn(state.model, batch,
+                                            state.generator, draws),
+        "diffusion train step")
+
+
 def make_eval_step(objective, sigmas, continuous_noise: bool, mesh=None):
     """``eval_step(model, batch, generator) -> summed loss`` (this rank's
     rows' under ``mesh``, with the global batch's draws, as the train
@@ -232,7 +256,11 @@ def fit(model,
                                  mesh)
     eval_step = make_eval_step(objective, sigmas, config.continuous_noise,
                                mesh)
+    train_chunk = (make_train_chunk(objective, sigmas,
+                                    config.continuous_noise, mesh)
+                   if config.scan_chunk > 1 else None)
     return loop_lib.run_loop(state, train_step, eval_step, train_data,
                              eval_data, config, model_dir=model_dir,
                              mesh=mesh, snapshot_callback=snapshot_callback,
-                             step_callback=step_callback)
+                             step_callback=step_callback,
+                             train_chunk=train_chunk)

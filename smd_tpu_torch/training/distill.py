@@ -13,9 +13,12 @@ teacher's two jumps land, halving the sampler's steps, down to 2.
 - The teacher is a frozen copy of the model that runs without a gradient;
   the student is another copy, trained in a ``TrainState`` (clip, Adam on
   optax's warmup-cosine schedule, optional EMA). A step launches the
-  teacher twice and the student once; the JAX package fuses ``scan_chunk``
-  steps into one dispatch, the port launches each step on its own and logs
-  at the same chunk boundaries.
+  teacher twice and the student once. The JAX package scans ``scan_chunk``
+  steps in one dispatch; here the chunk (``make_distill_step(...,
+  chunk=True)``) is one step captured in a CUDA graph and replayed
+  ``scan_chunk`` times on the card, run eagerly on the CPU
+  (``training/graphs.py``), one graph a stage, freed at the stage's end;
+  the loss is read at the same chunk boundaries.
 - Sampling with a stage is ``samplers.distilled_ddim_dynamics``.
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 
 from smd_tpu_torch.diffusion import schedules
 from smd_tpu_torch.diffusion.losses import reduce_fn
+from smd_tpu_torch.training import graphs
 from smd_tpu_torch.training.optimizer import (Optimizer,
                                               warmup_cosine_decay_schedule)
 from smd_tpu_torch.training.state import TrainState
@@ -161,23 +165,44 @@ def trainable_copy(model: nn.Module, params) -> nn.Module:
     return frozen_copy(model, params).requires_grad_(True)
 
 
-def make_distill_step(model, teacher_params, grid, mids,
-                      clip_x0: bool = True):
-    """``distill_step(state, batch, draws=None) -> (state, metrics)``: the
-    teacher (a frozen copy of ``model`` holding ``teacher_params``) twice
-    without a gradient, then the student's loss, gradient, clip, Adam and
-    EMA (``TrainState.descend``); metrics ``loss``, ``grad`` and ``lr``."""
+def _distill_loss_fn(model, teacher_params, grid, mids, clip_x0):
+    """``loss_fn(state, batch, draws)``: the student's distillation loss
+    against the teacher, a frozen copy of ``model`` holding
+    ``teacher_params``."""
     teacher = frozen_copy(model, teacher_params)
     device = next(model.parameters()).device
     grid, mids = _levels(grid, device), _levels(mids, device)
 
-    def distill_step(state: TrainState, batch, draws=None):
-        loss = progressive_distillation_loss(
+    def loss_fn(state: TrainState, batch, draws=None):
+        return progressive_distillation_loss(
             batch, state.model, teacher, grid, mids, state.generator,
             clip_x0=clip_x0, draws=draws)
-        return state, state.descend(loss)
 
-    return distill_step
+    return loss_fn
+
+
+def descending(loss_fn):
+    """``step(state, batch, draws=None) -> (state, metrics)``: the loss,
+    then ``TrainState.descend``."""
+    def step(state: TrainState, batch, draws=None):
+        return state, state.descend(loss_fn(state, batch, draws))
+
+    return step
+
+
+def make_distill_step(model, teacher_params, grid, mids,
+                      clip_x0: bool = True, chunk: bool = False):
+    """``distill_step(state, batch, draws=None) -> (state, metrics)``: the
+    teacher (a frozen copy of ``model`` holding ``teacher_params``) twice
+    without a gradient, then the student's loss, gradient, clip, Adam and
+    EMA (``TrainState.descend``); metrics ``loss``, ``grad`` and ``lr``.
+    With ``chunk`` the same steps K at a time (JAX's
+    ``make_distill_scan``): ``distill_chunk(state, batches, draws=None) ->
+    (state, (K,) metrics)``, a ``graphs.TrainChunk``."""
+    loss_fn = _distill_loss_fn(model, teacher_params, grid, mids, clip_x0)
+    if chunk:
+        return graphs.TrainChunk(loss_fn, "progressive distillation step")
+    return descending(loss_fn)
 
 
 def _to_device(batch, device):
@@ -189,11 +214,28 @@ def _to_device(batch, device):
 def run_steps(state: TrainState, step_fn, batches: Iterator, steps: int,
               log_every: Optional[int] = None,
               log_fn: Optional[Callable[[int, float], None]] = None):
-    """``steps`` calls of ``step_fn(state, batch)`` on ``next(batches)``
-    (moved to the model's device). ``log_fn(step, loss)`` reads the loss
-    back where the JAX package's loops log: after every ``log_every``-th
-    step and the last (its ``scan_chunk`` boundaries), or with
+    """``steps`` steps on ``next(batches)`` (moved to the model's device).
+
+    ``step_fn`` is a step, ``step_fn(state, batch)``, or a chunk
+    (``graphs.TrainChunk``), which takes ``log_every`` batches at a time
+    (fewer in the last chunk) and is closed at the end, freeing its graph.
+    ``log_fn(step, loss)`` reads the loss back where the JAX package's
+    loops log: after every ``log_every``-th step and the last (its
+    ``scan_chunk`` boundaries; a chunk's last row), or with
     ``log_every=None`` at every 500th step and the last."""
+    if isinstance(step_fn, graphs.TrainChunk):
+        try:
+            done = 0
+            while done < steps:
+                k = min(log_every, steps - done)
+                state, metrics = step_fn(state, [next(batches)
+                                                 for _ in range(k)])
+                done += k
+                if log_fn is not None:
+                    log_fn(done - 1, float(metrics["loss"][-1]))
+        finally:
+            step_fn.close()
+        return state
     device = next(state.model.parameters()).device
     for step in range(steps):
         batch = _to_device(next(batches), device)
@@ -275,7 +317,7 @@ def progressive_distill(model: nn.Module,
         state = TrainState.create(trainable_copy(model, teacher), tx,
                                   generator, ema=ema, ema_mu=ema_mu)
         step_fn = make_distill_step(model, teacher, student_grid, mids,
-                                    clip_x0=clip_x0)
+                                    clip_x0=clip_x0, chunk=scan_chunk > 1)
         stage_log = None if log_fn is None else \
             (lambda step, loss, n=num_steps: log_fn(n, step, loss))
         run_steps(state, step_fn, batches, steps_per_stage,

@@ -4,11 +4,16 @@ One loop: logging cadence, snapshot eval, checkpoint and resume, early
 stopping, the max-steps cutoff and the forced final save. The
 model-specific pieces (state, train and eval steps) are injected.
 
-The JAX loop fuses ``scan_chunk`` steps into one ``lax.scan`` dispatch; the
-port launches every step on its own, so ``scan_chunk`` changes nothing
-here: snapshots and checkpoints land at ``snapshot_freq`` and ``max_steps``
-either way, which is what the chunked JAX loop preserves. Capturing the
-step in a CUDA graph is queued in ``ROADMAP.md`` (D.2).
+With ``train_chunk`` and ``scan_chunk`` K > 1 the loop takes its steps K
+at a time, as the JAX loop runs K steps in one ``lax.scan`` dispatch: up to
+K host batches are stacked and handed to ``train_chunk`` (on the card one
+step captured in a CUDA graph and replayed K times, ``training/graphs.py``;
+on the CPU K eager steps). Chunks are cut short where a snapshot or
+``max_steps`` falls, so snapshots, checkpoints and the end land where the
+per-step loop puts them; the loop logs at chunk granularity (the row of the
+step that crosses a logging boundary), and ``debug_nans`` checks the
+chunk's (K,) losses in place of autograd's anomaly mode, which a graph
+cannot capture.
 
 Under a ``parallel.mesh.Mesh`` every rank runs the loop in step: the eval
 loss and its example count are summed over the data group, so early
@@ -20,6 +25,7 @@ JAX loop writes on process 0.
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 import time
 from typing import Callable, Iterable, Optional
@@ -36,6 +42,11 @@ from smd_tpu_torch.utils import profiling
 __all__ = ["evaluate", "run_loop", "device_prefetch"]
 
 log = logging.getLogger("smd_tpu_torch")
+
+MESH_CHUNK = ("scan_chunk > 1 under a mesh is not ported: the chunk is a "
+              "CUDA graph of one rank's step, whose gradient all-reduce gloo "
+              "cannot run inside a capture (ROADMAP.md, B: the chunk under "
+              "NCCL); train with scan_chunk=1")
 
 
 def device_prefetch(iterator, device, size: int = 2):
@@ -88,7 +99,8 @@ def run_loop(state,
              model_dir: Optional[str] = None,
              snapshot_callback: Optional[Callable] = None,
              step_callback: Optional[Callable] = None,
-             mesh=None):
+             mesh=None,
+             train_chunk: Optional[Callable] = None):
     """Run the epoch/step loop; returns the final state.
 
     ``train_step(state, batch) -> (state, metrics)`` draws from
@@ -98,9 +110,17 @@ def run_loop(state,
     metrics)`` after each step, with the metrics as device tensors (read
     nothing back there unless you mean to wait for the device). ``mesh``:
     the ``parallel.mesh.Mesh`` the steps run over (see the module's
-    docstring), or None for one rank.
+    docstring), or None for one rank. ``train_chunk(state, (K, batch, ...)
+    stack) -> (state, (K,)-metrics)``: the steps K at a time when
+    ``config.scan_chunk`` is K > 1 (see the module's docstring); then
+    ``step_callback`` runs after each chunk, once for each of its steps.
     """
-    if getattr(config, "debug_nans", False):
+    scan_chunk = getattr(config, "scan_chunk", 1)
+    use_chunk = train_chunk is not None and scan_chunk > 1
+    if use_chunk and mesh is not None:
+        raise ValueError(MESH_CHUNK)
+    debug_nans = getattr(config, "debug_nans", False)
+    if debug_nans and not use_chunk:
         torch.autograd.set_detect_anomaly(True)
     profile_steps = getattr(config, "profile_steps", 0)
     profile_start = getattr(config, "profile_start_step", 10)
@@ -180,10 +200,49 @@ def run_loop(state,
                 return True
         return at_end
 
+    def run_chunks(start_time):
+        """One epoch K steps at a time; returns stop."""
+        nonlocal state, global_step
+        it = iter(train_data())
+        step_in_epoch = 0
+        while True:
+            if config.max_steps is not None and \
+                    global_step >= config.max_steps:
+                return True   # e.g. resumed from a completed run
+            k = min(scan_chunk, config.snapshot_freq -
+                    global_step % config.snapshot_freq)
+            if config.max_steps is not None:
+                k = min(k, config.max_steps - global_step)
+            batches = [np.asarray(b) for b in itertools.islice(it, max(k, 1))]
+            if not batches:
+                return False   # epoch exhausted
+            handle_profiler()
+            state, metrics = train_chunk(state, batches)
+            prev_step = global_step
+            global_step += len(batches)
+            step_in_epoch += len(batches)
+            if debug_nans and not torch.isfinite(metrics["loss"]).all():
+                raise FloatingPointError(
+                    f"non-finite loss in steps {prev_step + 1} to "
+                    f"{global_step}: {metrics['loss'].tolist()}")
+            if step_callback is not None:
+                for j in range(len(batches)):
+                    step_callback(prev_step + j + 1,
+                                  {n: v[j] for n, v in metrics.items()})
+            if writes and (prev_step == 0 or prev_step // config.logging_freq
+                           != global_step // config.logging_freq):
+                log_train({n: v[-1] for n, v in metrics.items()},
+                          step_in_epoch - 1, start_time)
+            if snapshot_or_end():
+                return True
+
     for _ in range(config.epochs):
         if stop:
             break
         start_time = time.time()
+        if use_chunk:
+            stop = run_chunks(start_time)
+            continue
         for step, batch in enumerate(device_prefetch(train_data(), device)):
             if config.max_steps is not None and \
                     global_step >= config.max_steps:
@@ -192,8 +251,7 @@ def run_loop(state,
             handle_profiler()
             state, metrics = train_step(state, batch)
             global_step += 1
-            if getattr(config, "debug_nans", False) and \
-                    not torch.isfinite(metrics["loss"]):
+            if debug_nans and not torch.isfinite(metrics["loss"]):
                 raise FloatingPointError(
                     f"non-finite loss at step {global_step}")
             if step_callback is not None:

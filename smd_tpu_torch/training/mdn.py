@@ -4,10 +4,10 @@
 The objective is the teacher-forced mixture NLL (``losses.mdn_nll``); the
 step is the diffusion harness's: gradient, the gradients' unclipped global
 norm, clip and Adam, with the metrics ``loss``, ``grad`` and ``lr``. The
-reference MDN has no EMA. The JAX package's ``make_train_chunk`` fuses
-``scan_chunk`` steps into one dispatch; here, as in the diffusion harness,
-each step is launched on its own and ``scan_chunk`` changes nothing
-(``loop.run_loop``).
+reference MDN has no EMA. ``make_train_chunk`` takes the steps
+``scan_chunk`` at a time, as the JAX package's scans them in one dispatch:
+one step captured in a CUDA graph and replayed on the card, eager steps on
+the CPU (``training/graphs.py``, through ``loop.run_loop``).
 """
 from __future__ import annotations
 
@@ -18,12 +18,14 @@ import torch
 
 from smd_tpu_torch.diffusion.losses import mdn_nll
 from smd_tpu_torch.training import diffusion as dtrainer
+from smd_tpu_torch.training import graphs
 from smd_tpu_torch.training import loop as loop_lib
 from smd_tpu_torch.training.diffusion import TrainConfig
 from smd_tpu_torch.training.state import TrainState
 from smd_tpu_torch.utils import logging as log_lib
 
-__all__ = ["create_train_state", "make_train_step", "make_eval_step", "fit"]
+__all__ = ["create_train_state", "make_train_step", "make_train_chunk",
+           "make_eval_step", "fit"]
 
 
 def create_train_state(model, config: TrainConfig, seed: int = 0,
@@ -44,11 +46,26 @@ def make_train_step(mesh=None):
     del mesh
 
     def train_step(state: TrainState, batch):
-        pi, mu, log_sigma = state.model(batch)
-        return state, state.descend(mdn_nll(pi, mu, log_sigma, batch,
-                                            "mean"))
+        return state, state.descend(_loss(state, batch))
 
     return train_step
+
+
+def _loss(state: TrainState, batch, draws=None):
+    """The teacher-forced NLL's mean over the batch's positions."""
+    del draws
+    pi, mu, log_sigma = state.model(batch)
+    return mdn_nll(pi, mu, log_sigma, batch, "mean")
+
+
+def make_train_chunk(mesh=None) -> graphs.TrainChunk:
+    """``train_chunk(state, batches) -> (state, metrics)``: ``scan_chunk``
+    train steps on a (K, batch, ...) stack, each metric a (K,) row (JAX's
+    ``make_train_chunk``; see ``diffusion.make_train_chunk``). Under
+    ``mesh`` it raises, as the diffusion chunk does."""
+    if mesh is not None:
+        raise ValueError(loop_lib.MESH_CHUNK)
+    return graphs.TrainChunk(_loss, "MDN train step")
 
 
 def make_eval_step(mesh=None):
@@ -87,8 +104,10 @@ def fit(model,
     del input_shape
     state = create_train_state(model, config, seed, mesh=mesh)
     log_lib.report_params(state.params)
+    train_chunk = make_train_chunk(mesh) if config.scan_chunk > 1 else None
     return loop_lib.run_loop(state, make_train_step(mesh),
                              make_eval_step(mesh), train_data, eval_data,
                              config, model_dir=model_dir, mesh=mesh,
                              snapshot_callback=snapshot_callback,
-                             step_callback=step_callback)
+                             step_callback=step_callback,
+                             train_chunk=train_chunk)

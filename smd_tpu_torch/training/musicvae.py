@@ -15,18 +15,28 @@ The draws (the encoder's noise, the scheduled-sampling and decode draws)
 come from ``generator`` unless given as ``noise``, ``gumbel`` and
 ``ss_mix`` (see ``codec.musicvae.Decoder``), which is how the tests replay
 JAX's.
+
+``make_train_chunk`` takes the steps K at a time, as the JAX script scans
+``--scan_chunk`` steps in one dispatch: on the card one step captured in a
+CUDA graph (the decoder's Python loop of steps with its Gumbel and
+Bernoulli draws included) and replayed K times, with the LR, Adam's bias
+corrections and the scheduled-sampling probability staged as per-step
+tables; on the CPU K eager steps (``training/graphs.py``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from smd_tpu_torch.codec.musicvae import MusicVAE, elbo_loss
+from smd_tpu_torch.training import graphs
 from smd_tpu_torch.training.optimizer import (Optimizer,
                                               warmup_cosine_decay_schedule)
 
-__all__ = ["make_optimizer", "one_hot", "train_step", "eval_step"]
+__all__ = ["make_optimizer", "one_hot", "train_step", "make_train_chunk",
+           "eval_step"]
 
 END_FRACTION = 0.02   # the codec trainer's cosine end value, of the peak
 
@@ -55,9 +65,12 @@ def train_step(model: MusicVAE, optimizer: Optimizer, opt_state: dict,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
                gumbel: Optional[torch.Tensor] = None,
-               ss_mix: Optional[torch.Tensor] = None):
+               ss_mix: Optional[torch.Tensor] = None,
+               hyper: Optional[Dict[str, torch.Tensor]] = None):
     """One optimizer step, in place on the model's parameters and on
-    ``opt_state``; returns (loss, {"rec", "kl"}) as device tensors."""
+    ``opt_state``; returns (loss, {"rec", "kl"}) as device tensors.
+    ``hyper``: the step's LR and bias corrections as tensors
+    (``Optimizer.apply``), as a captured step takes them."""
     cfg = model.config
     x = one_hot(batch, cfg.depth)
     logits, mu, sigma = model(x, generator, noise, ss_prob, gumbel, ss_mix)
@@ -65,8 +78,48 @@ def train_step(model: MusicVAE, optimizer: Optimizer, opt_state: dict,
                           beta=cfg.beta)
     params = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(params.values()))
-    optimizer.apply(params, dict(zip(params, grads)), opt_state)
+    optimizer.apply(params, dict(zip(params, grads)), opt_state, hyper=hyper)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def make_train_chunk(model: MusicVAE, optimizer: Optimizer, opt_state: dict,
+                     generator: Optional[torch.Generator] = None,
+                     scheduled_sampling: bool = False):
+    """``train_chunk(batches, ss_probs) -> {"loss", "rec", "kl", "lr"}``:
+    ``train_step`` on each batch of a (K, B, T[, depth]) stack, each step's
+    scheduled-sampling probability from ``ss_probs`` (K floats), each
+    metric a (K,) row; ``opt_state``'s count advanced by K. With
+    ``scheduled_sampling`` every step draws the scheduled-sampling tokens
+    (its probability a tensor, as in JAX's scan), else none does (the
+    probabilities must then be 0). ``train_chunk.close()`` frees the
+    graph."""
+    params = dict(model.named_parameters())
+
+    def step(slot):
+        loss, aux = train_step(
+            model, optimizer, opt_state, slot["batch"],
+            slot["ss_prob"] if scheduled_sampling else 0.0, generator,
+            hyper=slot)
+        return {"loss": loss, **aux, "lr": slot["lr"]}
+
+    chunk = graphs.StepChunk(
+        step, lambda: optimizer.tensors(params, opt_state), generator,
+        "codec train step")
+
+    def train_chunk(batches, ss_probs):
+        ss_probs = np.asarray(ss_probs, np.float32)
+        if not scheduled_sampling and ss_probs.any():
+            raise ValueError("scheduled-sampling probabilities above 0 "
+                             "need scheduled_sampling=True")
+        k = len(ss_probs)
+        tables = optimizer.tables(opt_state["count"], k)
+        tables["ss_prob"] = ss_probs
+        metrics = chunk({"batch": batches}, tables)
+        opt_state["count"] += k
+        return metrics
+
+    train_chunk.close = chunk.close
+    return train_chunk
 
 
 @torch.no_grad()

@@ -10,8 +10,10 @@ arithmetic:
 
 - clip: g is kept where ‖g‖ < max, else g / ‖g‖ · max;
 - Adam: m = (1-b1)·g + b1·m, v = (1-b2)·g² + b2·v, both unrounded in the
-  update; bias correction with count + 1; update m̂ / (sqrt(v̂) + eps), eps
-  = 1e-8 outside the root;
+  update; bias correction with count + 1, m̂ = m · (1/bc1), v̂ likewise
+  (the reciprocal rounded to float32, as PyTorch's CUDA division by a
+  scalar takes it); update m̂ / (sqrt(v̂) + eps), eps = 1e-8 outside the
+  root;
 - the LR at the count before the increment; with warmup the decay counts
   from the end of warmup (``optax.join_schedules`` hands it ``step -
   warmup``).
@@ -21,6 +23,13 @@ keyed by parameter name as optax's trees are keyed by path, so a JAX
 optimizer state carries over by name. ``adam_m_bf16`` stores the first
 moment in bfloat16 after the update has used it in float32, as optax's
 ``mu_dtype`` does.
+
+Every tensor of the params and the state is written in place, so a step
+captured in a CUDA graph (``training/graphs.py``) updates the same memory
+at each replay. The host values of a step (the LR and the two bias
+corrections, from the count) are ``hyperparams``; a captured step takes
+them as 0-d device tensors from ``tables``, staged per step, instead, and
+rounds as the eager step does.
 """
 from __future__ import annotations
 
@@ -110,19 +119,52 @@ class Optimizer:
     eps: float = 1e-8
     mu_dtype: Optional[torch.dtype] = None
 
+    @staticmethod
+    def tensors(params: Dict[str, torch.Tensor], state: dict):
+        """The tensors a step writes: ``params`` and the moments."""
+        return [*(p.detach() for p in params.values()),
+                *state["mu"].values(), *state["nu"].values()]
+
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         return {"count": 0,
                 "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                        for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
+    def hyperparams(self, count: int):
+        """(LR, 1 / bc1, 1 / bc2) of the step taken at ``count``: the LR at
+        ``count`` and the reciprocals, in double, of the bias corrections
+        bc = 1 - b^(count+1), each in optax's float32 arithmetic. The step
+        multiplies by the reciprocals, which each operation rounds to
+        float32: what PyTorch's CUDA foreach division by a Python scalar
+        computes (it multiplies by the reciprocal), so the step's rounding
+        is the same whether the values come as Python floats (an eager
+        step) or as staged float32 tensors (a captured one)."""
+        f32 = np.float32
+        bc1 = f32(1) - np.power(f32(self.b1), f32(count + 1), dtype=f32)
+        bc2 = f32(1) - np.power(f32(self.b2), f32(count + 1), dtype=f32)
+        return self.schedule(count), 1.0 / float(bc1), 1.0 / float(bc2)
+
+    def tables(self, count: int, steps: int) -> Dict[str, np.ndarray]:
+        """``hyperparams`` of the ``steps`` steps from ``count`` on, as the
+        float32 rows ``lr``, ``inv_bc1``, ``inv_bc2`` that the step's
+        operations use (each value rounded to float32 as an operation
+        rounds a Python float)."""
+        rows = np.asarray([self.hyperparams(count + j)
+                           for j in range(steps)], np.float32)
+        return {"lr": rows[:, 0], "inv_bc1": rows[:, 1],
+                "inv_bc2": rows[:, 2]}
+
     @torch.no_grad()
     def apply(self, params: Dict[str, torch.Tensor],
               grads: Dict[str, torch.Tensor], state: dict,
-              grad_norm: Optional[torch.Tensor] = None) -> float:
+              grad_norm: Optional[torch.Tensor] = None,
+              hyper: Optional[Dict[str, torch.Tensor]] = None):
         """One step, in place on ``params`` and ``state``; returns the LR
         it used. ``grad_norm`` is the grads' global norm when the caller
-        has it already."""
+        has it already. ``hyper``: the step's ``lr``, ``inv_bc1`` and
+        ``inv_bc2`` as 0-d float32 tensors (a row of ``tables``); then the
+        count is left to the caller, and the LR returned is the tensor."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
@@ -146,21 +188,31 @@ class Optimizer:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, torch._foreach_mul(
             torch._foreach_mul(g, g), 1 - self.b2))
-        count = state["count"] + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - np.power(f32(self.b1), f32(count), dtype=f32))
-        bc2 = float(f32(1) - np.power(f32(self.b2), f32(count), dtype=f32))
-        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        if hyper is None:
+            lr, inv_bc1, inv_bc2 = self.hyperparams(state["count"])
+            state["count"] += 1
+        else:
+            lr, inv_bc1, inv_bc2 = (hyper["lr"], hyper["inv_bc1"],
+                                    hyper["inv_bc2"])
+        den = torch._foreach_sqrt(_scaled(nu, inv_bc2))
         torch._foreach_add_(den, self.eps)
-        update = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        lr = self.schedule(state["count"])
-        torch._foreach_mul_(update, -lr)
+        update = _scaled(torch._foreach_div(_scaled(mu, inv_bc1), den), -lr)
         torch._foreach_add_(p, update)
-        state["count"] = count
-        for n, m in zip(names, mu):
-            state["mu"][n] = m if self.mu_dtype is None else \
-                m.to(self.mu_dtype)
+        # The moment kept in place (rounded to mu_dtype by the copy).
+        torch._foreach_copy_(mu_old, mu)
         return lr
+
+
+def _scaled(tensors, scale):
+    """``tensors`` times ``scale`` (a float, or a 0-d float32 tensor of a
+    captured step), each product rounded as an eager step rounds it: in
+    float32, then once to the tensor's dtype. (With a 0-d tensor PyTorch
+    would first round ``scale`` itself to a bf16 list's dtype.)"""
+    if not torch.is_tensor(scale) or \
+            all(t.dtype == torch.float32 for t in tensors):
+        return torch._foreach_mul(tensors, scale)
+    out = torch._foreach_mul([t.float() for t in tensors], scale)
+    return [o.to(t.dtype) for o, t in zip(out, tensors)]
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -8,7 +8,9 @@ it in place, the PyTorch idiom, where the JAX step returns a new pytree.
 generator's state included, so a resumed run draws what a straight run
 would have drawn. A checkpoint loaded on another kind of device (trained on
 the card, sampled on the CPU) keeps the new state's generator, whose state
-has another form there.
+has another form there. Params, Adam moments and EMA are written in place,
+by a step and by ``load_state_dict`` alike, so a step captured in a CUDA
+graph (``training/graphs.py``) keeps writing the state's own tensors.
 
 Under a ``parallel.mesh.Mesh`` (``mesh``, with ``specs`` naming the
 parameters split over the model axis): ``descend`` averages the gradients
@@ -84,10 +86,14 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor],
-                        grad_norm: Optional[torch.Tensor] = None) -> float:
-        """Clip, Adam and the EMA update; returns the LR of the step."""
+                        grad_norm: Optional[torch.Tensor] = None,
+                        hyper: Optional[Dict[str, torch.Tensor]] = None):
+        """Clip, Adam and the EMA update; returns the LR of the step.
+        ``hyper``: the step's LR and bias corrections as device tensors
+        (``Optimizer.apply``), in a captured step, which counts nothing:
+        ``advance`` counts the steps of a chunk after it."""
         params = self.params
-        lr = self.tx.apply(params, grads, self.opt_state, grad_norm)
+        lr = self.tx.apply(params, grads, self.opt_state, grad_norm, hyper)
         if self.ema_params is not None:
             mu = self.ema_mu
             names = list(params)
@@ -96,19 +102,31 @@ class TrainState:
                 torch._foreach_mul_(ema, mu)
                 torch._foreach_add_(ema, torch._foreach_mul(
                     [params[n].float() for n in names], 1 - mu))
-        self.step += 1
+        if hyper is None:
+            self.step += 1
         return lr
 
-    def descend(self, loss: torch.Tensor) -> dict:
+    def advance(self, steps: int) -> None:
+        """Count ``steps`` steps taken with ``hyper`` (a chunk's)."""
+        self.step += steps
+        self.opt_state["count"] += steps
+
+    def descend(self, loss: torch.Tensor,
+                hyper: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         """One step on ``loss``: its gradient with respect to every param,
         their unclipped global norm, then ``apply_gradients``. Returns the
-        metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float).
-        Under a data axis the gradients and the loss are the data group's
-        means."""
+        metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float, or
+        ``hyper``'s tensor). Under a data axis the gradients and the loss
+        are the data group's means."""
         grads, loss = self.gradients(loss)
         grad_norm = self.global_norm(grads)
-        lr = self.apply_gradients(grads, grad_norm)
+        lr = self.apply_gradients(grads, grad_norm, hyper)
         return {"loss": loss, "grad": grad_norm, "lr": lr}
+
+    def tensors(self):
+        """Every tensor a step writes: params, Adam moments, EMA."""
+        return [*self.tx.tensors(self.params, self.opt_state),
+                *(self.ema_params or {}).values()]
 
     def gradients(self, loss: torch.Tensor):
         """({name: gradient of ``loss``}, the loss detached); under a data
@@ -175,20 +193,21 @@ class TrainState:
             return self._by_leaf(tree, lambda t, spec: mesh_lib.slice_leaf(
                 t, spec, self.mesh))
 
-        params = blocks(saved["params"])
+        def copy(into, tree):
+            """``tree``'s tensors copied into ``into``'s, by name."""
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    copy(into[k], v)
+                elif torch.is_tensor(v):
+                    into[k].copy_(v)
+                else:
+                    into[k] = v
+
         with torch.no_grad():
-            for n, p in self.params.items():
-                p.copy_(params[n])
-        device = next(self.model.parameters()).device
-
-        def to_device(tree):
-            if isinstance(tree, dict):
-                return {k: to_device(v) for k, v in tree.items()}
-            return tree.to(device) if torch.is_tensor(tree) else tree
-
-        self.opt_state = to_device(blocks(saved["opt_state"]))
-        if self.ema_params is not None:
-            self.ema_params = to_device(blocks(saved["ema_params"]))
+            copy(self.params, blocks(saved["params"]))
+            copy(self.opt_state, blocks(saved["opt_state"]))
+            if self.ema_params is not None:
+                copy(self.ema_params, blocks(saved["ema_params"]))
         if saved["generator_device"] == self.generator.device.type:
             self.generator.set_state(saved["generator"])
         self.step = int(saved["step"])

@@ -9,7 +9,11 @@ kernel is charged to the PyTorch operation that launched it (the trace's
 ``External id``); a kernel launched outside one (the port's own kernels,
 called through ``ctypes``) is its own category. A trace without device
 activity (a CPU run) has no device time to report, and ``op_profile``
-raises.
+raises. ``trace_summary`` reads a ``torch.profiler`` run in memory: the
+device-busy time (the union of the device events' intervals), the span and
+the idle share, and ``host_launches`` counts the host's calls that enqueue
+device work (kernel and graph launches, copies and fills), which a
+captured step cuts to a few a step.
 """
 from __future__ import annotations
 
@@ -24,10 +28,14 @@ import torch
 
 from smd_tpu_torch.device import resolve_device
 
-__all__ = ["Trace", "trace", "op_profile", "format_op_profile"]
+__all__ = ["Trace", "trace", "op_profile", "format_op_profile",
+           "busy_us", "trace_summary", "host_launches"]
 
 # Chrome-trace categories of device activity.
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# CUDA API calls (cuda* and cu*) that enqueue device work.
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 
 
 class Trace:
@@ -132,3 +140,41 @@ def format_op_profile(total_ms: float, rows, steps: int = 1) -> str:
                 continue
             lines.append(f"      {ms / steps:8.3f} ms  {name}")
     return "\n".join(lines)
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def trace_summary(prof):
+    """(device events, device-busy us, span us, idle share) of a
+    ``torch.profiler`` run: busy is the union of the device events'
+    intervals, the span runs from the first event to the last, host or
+    device, and the idle share is 1 - busy / span. Raises ValueError for a
+    run without device events."""
+    device, spans = [], []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device.append(evt)
+        spans.append((evt.time_range.start, evt.time_range.end))
+    if not device:
+        raise ValueError("the profiler recorded no device time")
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in device])
+    span = max(e for _, e in spans) - min(s for s, _ in spans)
+    return device, busy, span, 1 - busy / span
+
+
+def host_launches(prof) -> int:
+    """The host's calls in a ``torch.profiler`` run that enqueue device
+    work: kernel and graph launches, copies and fills."""
+    return sum(evt.device_type == torch.autograd.DeviceType.CPU and
+               evt.name.startswith(_LAUNCH_CALLS) for evt in prof.events())

@@ -59,7 +59,8 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10 and all(f.exists() for f in files)
     new = ("parallel/mesh.py", "parallel/column.py", "dryrun.py",
            "utils/msgpack.py", "utils/convert.py", "utils/profiling.py",
-           "utils/native.py", "scripts/convert_reference_checkpoint.py")
+           "utils/native.py", "scripts/convert_reference_checkpoint.py",
+           "training/graphs.py")
     assert all(ROOT / "smd_tpu_torch" / f in files for f in new)
     bad, lazy = [], set()
     for path in files:

@@ -463,9 +463,20 @@ def test_resume_at_completion_is_a_noop(tmp_path):
 
 
 @pytest.mark.parametrize("scan_chunk", [1, 4])
-def test_scan_chunk_fit_boundaries(tmp_path, scan_chunk):
+def test_scan_chunk_fit_boundaries(tmp_path, scan_chunk, monkeypatch):
     """Snapshots land at snapshot_freq and training stops at max_steps,
-    chunked or not (the JAX package's test_scan_chunk_fit_boundaries)."""
+    chunked or not (the JAX package's test_scan_chunk_fit_boundaries). With
+    scan_chunk 4 the steps go through the chunk, cut at the snapshot (4,
+    then 2 to step 6) and at max_steps (4 to step 10)."""
+    from smd_tpu_torch.training import graphs
+    chunks = []
+    call = graphs.TrainChunk.__call__
+
+    def spy(self, state, batches, draws=None):
+        chunks.append(len(batches))
+        return call(self, state, batches, draws)
+
+    monkeypatch.setattr(graphs.TrainChunk, "__call__", spy)
     seen = []
     state = _fit(str(tmp_path / "s"), 10, snapshot_freq=6,
                  scan_chunk=scan_chunk, epoch_batches=50, seen=seen)
@@ -473,6 +484,7 @@ def test_scan_chunk_fit_boundaries(tmp_path, scan_chunk):
     assert seen == [6, 10]
     assert CheckpointManager(str(tmp_path / "s" / "ckpt")).all_steps() == \
         [6, 10]
+    assert chunks == ([] if scan_chunk == 1 else [4, 2, 4])
 
 
 def test_unported_objectives_raise():
