@@ -34,10 +34,15 @@ Phases, one flushed line each with its seconds:
 4. model: one fused flagship call on 64x32x42 through the kernels against
    the same call through the plain versions; the launch counts rise by 6
    and 4.
-5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests;
-   the counts rise by 6000 and 4000, every attention launch on the
-   tensor-core kernel; a 20-step run through the kernels matches one
-   through the plain versions with the same generator.
+5. serve: ``generate.sample(sampling="ddpm")`` with T=1000 on 64 requests,
+   twice, as two requests of one shape: the first call captures the step
+   in a CUDA graph after 2 eager warm-up steps (``utils/graphs.py``; the
+   counts rise by 1002 model calls' 6 and 4), the second replays it, timed
+   (by 6000 and 4000), every attention launch on the tensor-core kernel; a
+   20-step run through the kept graph matches one through the plain
+   versions, run eagerly, with the same generator. Every serve phase
+   (5, 7, 9, 11, 14, 15, 18–19, 21–22, 23b, 24c) times the second call of
+   a shape and prints the first call's seconds beside.
 6. int8 model: the flagship's standard-layout weights from a seed,
    quantized with ``quantize_head_params`` and calibrated on the card with
    ``calibrate_head_act_scales``, float leaves cast to bf16; one call on
@@ -51,7 +56,7 @@ Phases, one flushed line each with its seconds:
    plain version, the flash count rising by 6; one call on 64x32x42, which
    takes the einsum and launches nothing.
 9. standard serve: as 5 on 16 requests of 512x42; the flash count rises by
-   6000.
+   6000 (6012 at the first call).
 
 10. train: ``python -m smd_tpu_torch.train_ncsn``'s ``main`` with
     ``configs/ddpm-mel-32seq-512.cfg`` (the flagship, batch 64, T=1000
@@ -79,10 +84,11 @@ Phases, one flushed line each with its seconds:
     consistency-1 on ``distill_grid(betas, 32)``, each timed; the counts
     rise by 6 and 4 a model call, every attention launch on the
     tensor-core kernel; each chain through the kernels against the same
-    chain through the plain versions, same generator, within CHAIN_RTOL of
-    its norm, and every model call of the plain chain through the kernels
-    on the same input within CALL_RTOL. Then ``generate.interpolate`` on a
-    20-step schedule (9 interpolants of 64 pairs).
+    chain through the plain versions (run eagerly: each call's gap is read
+    back), same generator, within CHAIN_RTOL of its norm, and every model
+    call of the plain chain through the kernels on the same input within
+    CALL_RTOL. Then ``generate.interpolate`` on a 20-step schedule (9
+    interpolants of 64 pairs, the 9 chains replaying one graph).
 15. few-step int8 and flash: DDIM-50 through the int8 flagship (1000
     requests; 200 w8a8 launches, no w_q transpose) and DPM++-8 through the
     standard flagship at 16 x 512x42 (48 flash launches), each against its
@@ -120,7 +126,9 @@ Phases, one flushed line each with its seconds:
     steps of the same network (a double backward), finite loss and
     gradient norm; ``sample_ncsn --sampling=cas`` at the 500 levels and
     ``--sampling=ald`` at the 500 levels with ``--ld_steps`` cut from 100
-    to 10, 1000 requests each, with ms per model call.
+    to 10, 1000 requests each, with ms per model call (``generate.sample``
+    called twice inside the CLI, the generator put back between: the
+    second call, a replay, timed).
 20. ConvNCSN forward and backward on 64x32x42 against the CPU; the toy
     flagfiles ``mixture-single-2.cfg`` (ToyNCSN, SSM, continuous noise)
     and ``mixture-single-ddpm-2.cfg`` (ToyDDPM) trained 20 steps each on
@@ -145,7 +153,8 @@ Phases, one flushed line each with its seconds:
     and resblock params in bf16, the head in float32); one NLL gradient
     through the kernel against the plain version, every parameter
     present; a few float32 optimizer steps; ``ar_decode`` at bf16 (512
-    full forwards: 512 x 6 flash launches) and ``ar_decode_cached`` (no
+    full forwards, 511 of them replays of the captured step: 512 x 6 flash
+    launches, 514 x 6 at the first call) and ``ar_decode_cached`` (no
     launch).
 
 23. codec and generation. (a) The MusicVAE codec ``melody-2-big`` at full
@@ -166,7 +175,8 @@ Phases, one flushed line each with its seconds:
     decoded by (a)'s codec into 64 MIDI files, each read back with one
     note per note-on token. (c) ``generate_melodies`` on a bundle of the
     port's writer (the standard flagship from a seed, 512x42) with
-    ``--sampler=dpmpp --steps=8 --n=4``: flash +48, 2,048 chunks decoded,
+    ``--sampler=dpmpp --steps=8 --n=4``: flash +60 (8 steps and the 2
+    warm-up steps of its one call's capture), 2,048 chunks decoded,
     4 MIDI files read back likewise; ``generate_song_data`` on 16 seeded
     MIDI files and ``decode_dataset`` on its records, every record finite
     and of its shape.
@@ -214,7 +224,7 @@ Phases, one flushed line each with its seconds:
     MDN on 128 x 32x42, a progressive-distillation stage 8 -> 4 of the
     fused flagship, the codec ``melody-2-big`` at batch 64 with scheduled
     sampling 0.2), each from one seeded state: 8 steps as one chunk (the
-    step captured in a CUDA graph, ``training/graphs.py``, and replayed)
+    step captured in a CUDA graph, ``utils/graphs.py``, and replayed)
     against 8 eager steps from the same state and generator state, twice
     (the capturing chunk and a replay of the cached graph): params, EMA,
     Adam state and losses bit-equal, or within CHUNK_SPREAD_FACTOR times
@@ -226,8 +236,32 @@ Phases, one flushed line each with its seconds:
     share and peak memory, eager against captured, beside the card. The
     chunks' film and attention launches join their records' counts.
 
-Before each model call, each 1000-step serve and each training run every
-launch count is set to 0, and after it every count is read and checked.
+27. captured sampler chains: each chain's step captured in a CUDA graph
+    and replayed, against the same chain run eagerly
+    (``utils.graphs.eager``) from a generator seeded alike, at full width:
+    DDPM-1000 on 64 x 32x42 fused and int8 (w8a8 inside a graph), DDPM-200
+    at 16 x 512x42 standard (flash inside a graph; T cut from 1000),
+    DDIM-50 at eta 0, and at eta 1 with infill (2 graphs: the last step
+    draws nothing), DPM++-8 with collection and metrics, distilled-2,
+    consistency-2 (2 graphs), ALD (500 levels, 2 steps a level, cut from
+    phase 19's 10) and CAS (2 graphs) through the DenseNCSN flagfile's 6 x
+    2048 network on 256 requests with 8 snapshots and the metrics, the
+    MDN's ``ar_decode_cached`` at 128 x 32 and 16 x 512 and ``ar_decode``
+    at 128 x 32 and 4 x 512 (flash inside a graph): state, collection,
+    metrics and the generator's state bit-equal (``torch.equal``) at the
+    capturing call; launches the eager chain's, plus the warm-up steps';
+    the planted fault: a second call, replaying the kept graph with another
+    schedule of the same length (the decodes: another seed), must equal a
+    fresh eager chain on it, launch as many kernels, and differ from the
+    first. Wall s eager, captured (the replaying call) and first call, the
+    captured chain's host launches and device-busy ms a model call (short
+    chains under the profiler; the decodes at 32 positions), peak memory,
+    beside the card.
+    The chains' launches join their records'.
+
+Before each model call, each serve and each training run every launch
+count is set to 0, and after it every count is read and checked. Each
+phase ends by freeing the sampler chains' kept graphs.
 
 Any failed check exits non-zero. The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -422,6 +456,11 @@ class Phase:
         return self
 
     def __exit__(self, *exc):
+        # The sampler chains' kept CUDA graphs (and the models their
+        # closures hold) go at each phase's end.
+        from smd_tpu_torch.utils import graphs
+        graphs.release()
+        torch.cuda.empty_cache()
         if exc[0] is None:
             say(f"[{self.name}] ok ({time.perf_counter() - self.t0:.1f} s)")
         return False
@@ -998,7 +1037,7 @@ def _side_counts():
 
 
 def _reset_counts():
-    from smd_tpu_torch.training import graphs
+    from smd_tpu_torch.utils import graphs
     for obj, attr in graphs.launch_counters():
         setattr(obj, attr, 0)
 
@@ -1030,6 +1069,47 @@ def phase_model(model, model_fn, layout, batch=SERVE_BATCH,
         f"max|err| {err:.3e} (max|out| {scale:.3f})")
 
 
+def _warmups():
+    """Eager warm-up steps run before CUDA graph captures so far."""
+    from smd_tpu_torch.utils import graphs
+    return graphs.warmup_steps
+
+
+def _serve_twice(what, run, calls, per_call, graphs_made=1, check_tc=True):
+    """``run(first)`` twice, as a user serves two requests of one shape: the
+    first call captures the chain's ``graphs_made`` CUDA graphs (each after
+    ``graphs.WARMUP_STEPS`` eager warm-up steps, whose launches count), the
+    second replays them. Fails unless the first launched ``calls`` model
+    calls plus the warm-up's of ``per_call`` and the second ``calls``
+    exactly, capturing nothing. Returns (the second call's output, its
+    seconds, the first call's seconds, its launch counts)."""
+    from smd_tpu_torch.utils import graphs
+    before = _warmups()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    run(True)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    made = _warmups() - before
+    if made != graphs.WARMUP_STEPS * graphs_made:
+        fail(f"{what}: the first call ran {made} warm-up steps, expected "
+             f"{graphs.WARMUP_STEPS} for each of {graphs_made} graphs")
+    _check_launches(f"{what}, first call ({made} warm-up steps)", _counts(),
+                    tuple((calls + made) * n for n in per_call), check_tc)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = run(False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    if _warmups() != before + made:
+        fail(f"{what}: the second call captured again")
+    _check_launches(what, counts, tuple(calls * n for n in per_call),
+                    check_tc)
+    return out, seconds, first, counts
+
+
 def model_fn_plain(model, model_fn, *args):
     """model_fn with the kernels' layers on their plain versions."""
     model.use_plain_ops(True)
@@ -1053,38 +1133,31 @@ def phase_serve(model, model_fn, smi, layout, batch=SERVE_BATCH,
                                       collect_metrics=False, device="cuda")
         return state
 
+    from smd_tpu_torch.utils import graphs
     with torch.no_grad():
-        serve(schedules.noise_schedule(1e-6, 0.01, 3, "linear"), 2)
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        state = serve(betas, 3)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts, (tc, transposes) = _counts(), _side_counts()
-        expected = tuple(SERVE_STEPS * n
-                         for n in per_call_launches(layout, seq_len))
+        state, seconds, first, counts = _serve_twice(
+            f"the {SERVE_STEPS}-step {layout} sample",
+            lambda first: serve(betas, 2 if first else 3), SERVE_STEPS,
+            per_call_launches(layout, seq_len))
+        transposes = _side_counts()[1]
         if not torch.isfinite(state).all():
             fail("served samples are not finite")
         if state.shape != (batch, seq_len, CHANNELS):
             fail(f"served samples have shape {tuple(state.shape)}")
-        if counts != expected:
-            fail(f"the {SERVE_STEPS}-step {layout} sample launched "
-                 f"(attention, film, w8a8, flash) {counts}, expected "
-                 f"{expected}")
-        if tc != counts[0] or transposes:
-            fail(f"the {layout} sample made {tc} of {counts[0]} attention "
-                 f"launches on the tensor-core kernel and {transposes} "
-                 f"transposes of w_q, expected all and 0")
         say(f"served {layout}: {batch} requests of {seq_len}x{CHANNELS} x "
             f"{SERVE_STEPS} DDPM steps in {seconds:.3f} s = "
-            f"{batch / seconds:.2f} seqs/s on {smi}; launches (attention, "
-            f"film, w8a8, flash) {counts}, w_q transposes {transposes}")
+            f"{batch / seconds:.2f} seqs/s on {smi} (the step captured in a "
+            f"CUDA graph, replayed; the first call, with "
+            f"{graphs.WARMUP_STEPS} warm-up steps and the capture, "
+            f"{first:.3f} s); launches (attention, film, w8a8, flash) "
+            f"{counts}, w_q transposes {transposes}")
 
+        # 20 steps replay the same graph; the yardstick runs eagerly.
         betas20 = schedules.noise_schedule(1e-6, 0.01, 20, "linear")
         ours = serve(betas20, 4)
-        ref = serve(betas20, 4,
-                    fn=lambda x, c: model_fn_plain(model, model_fn, x, c))
+        with graphs.eager():
+            ref = serve(betas20, 4, fn=lambda x, c: model_fn_plain(
+                model, model_fn, x, c))
     # bf16 flips as in the model phase, carried over 20 steps; x0 is
     # clipped to [-1, 1] and the posterior mean contracts each step.
     err = check_close("20-step sample", ours, ref, atol=5e-2, rtol=5e-2)
@@ -1210,26 +1283,26 @@ def phase_train_serve(smi):
         fail(f"restored step {state.step}, expected {RESUME_STEPS}")
     model_fn = cli.serving_model_fn(state.sampling_params)
     betas = cli.schedule_from_flags()
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    _reset_counts()
-    t0 = time.perf_counter()
-    samples, _, _ = generate.sample(model_fn, betas, gen, (SEQ_LEN, CHANNELS),
-                                    num_samples=SERVE_BATCH,
-                                    sampling=cli.FLAGS.sampling,
-                                    collect_steps=0, collect_metrics=False,
-                                    device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _counts()
-    if counts != per_call_launches("standard"):
-        fail(f"serving the checkpoint launched {counts}, expected none")
+
+    def run(first):
+        gen = torch.Generator(device="cuda").manual_seed(2 if first else 3)
+        return generate.sample(model_fn, betas, gen, (SEQ_LEN, CHANNELS),
+                               num_samples=SERVE_BATCH,
+                               sampling=cli.FLAGS.sampling, collect_steps=0,
+                               collect_metrics=False, device="cuda")[0]
+
+    with torch.no_grad():
+        samples, seconds, first, counts = _serve_twice(
+            "serving the checkpoint", run, betas.shape[0],
+            per_call_launches("standard"))
     if samples.shape != (SERVE_BATCH, SEQ_LEN, CHANNELS) or \
             not torch.isfinite(samples).all():
         fail(f"served samples {tuple(samples.shape)} are not finite or of "
              f"the expected shape")
     say(f"served the step-{state.step} checkpoint ({cli.FLAGS.sampling_dtype}"
         f" serving, {cli.FLAGS.sampling} T={betas.shape[0]}): {SERVE_BATCH} "
-        f"requests of {SEQ_LEN}x{CHANNELS} in {seconds:.3f} s on {smi}; "
+        f"requests of {SEQ_LEN}x{CHANNELS} in {seconds:.3f} s (replayed; "
+        f"the first call, capture included, {first:.3f} s) on {smi}; "
         f"samples in [{float(samples.min()):.3f}, "
         f"{float(samples.max()):.3f}], std {float(samples.std()):.3f}")
 
@@ -1422,10 +1495,12 @@ def _check_launches(what, counts, expected, check_tc=True):
 
 def _fewstep(model, model_fn, smi, layout, sampling, kw, calls, batch,
              seq_len):
-    """One few-step chain through ``generate.sample`` (timed, launches
-    counted), then the same chain from the same generator through the
-    plain versions; returns the launch counts."""
+    """One few-step chain through ``generate.sample`` twice (the first call
+    captures its one graph, the second replays it, timed; launches
+    counted), then the same chain from the second's generator through the
+    plain versions, eagerly; returns the second call's launch counts."""
     from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.utils import graphs
     kw = _sample_kw(kw)
 
     def run(fn, seed):
@@ -1437,17 +1512,11 @@ def _fewstep(model, model_fn, smi, layout, sampling, kw, calls, batch,
         return out
 
     with torch.no_grad():
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        ours = run(model_fn, 7)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = _counts()
-        _check_launches(f"the {sampling} sample ({layout})", counts,
-                        tuple(calls * n for n in per_call_launches(
-                            layout, seq_len)),
-                        check_tc=layout == "fused")
+        ours, seconds, first, counts = _serve_twice(
+            f"the {sampling} sample ({layout})",
+            lambda first: run(model_fn, 6 if first else 7), calls,
+            per_call_launches(layout, seq_len),
+            check_tc=layout == "fused")
         if ours.shape != (batch, seq_len, CHANNELS):
             fail(f"{sampling} samples have shape {tuple(ours.shape)}")
         call_rels = []
@@ -1458,7 +1527,8 @@ def _fewstep(model, model_fn, smi, layout, sampling, kw, calls, batch,
                                    plain.norm()))
             return plain
 
-        ref = run(plain_and_kernels, 7)
+        with graphs.eager():   # each call's gap is read back
+            ref = run(plain_and_kernels, 7)
     if not torch.isfinite(ours).all():
         fail(f"{sampling} {layout} chain: non-finite output")
     call_rel = max(call_rels)
@@ -1472,7 +1542,8 @@ def _fewstep(model, model_fn, smi, layout, sampling, kw, calls, batch,
              f"{rel:.3e} of its norm, more than {CHAIN_RTOL}")
     say(f"{sampling} {layout} ({calls} model calls): {batch} requests of "
         f"{seq_len}x{CHANNELS} in {seconds:.3f} s = {batch / seconds:.1f} "
-        f"seqs/s on {smi}; launches (attention, film, w8a8, flash) "
+        f"seqs/s on {smi} (replayed; the first call, capture included, "
+        f"{first:.3f} s); launches (attention, film, w8a8, flash) "
         f"{counts}; kernels vs plain, |err| / |plain|: worst model call "
         f"{call_rel:.3e} (tolerance {CALL_RTOL}), chain from the same "
         f"generator {rel:.3e} (tolerance {CHAIN_RTOL}), max|err| "
@@ -1486,31 +1557,26 @@ def phase_fewstep(smi):
     from smd_tpu_torch.sampling import generate
     model, model_fn = _flagship()
     counts = []
-    with torch.no_grad():   # warm-up: each sampler's host path once
-        for sampling, kw, _ in FEWSTEP:
-            _fewstep_warmup(model_fn, sampling, kw)
     for sampling, kw, calls in FEWSTEP:
         counts.append(_fewstep(model, model_fn, smi, "fused", sampling, kw,
                                calls, FEWSTEP_BATCH, SEQ_LEN))
     gen = torch.Generator(device="cuda").manual_seed(8)
     real = torch.rand(SERVE_BATCH, SEQ_LEN, CHANNELS, generator=gen,
                       device="cuda") * 2 - 1
-    with torch.no_grad():
-        _reset_counts()
-        t0 = time.perf_counter()
-        out, _, _ = generate.interpolate(model_fn, _betas(20), gen,
-                                         real.cpu().numpy(), device="cuda")
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    counts.append(_counts())
-    _check_launches("interpolate", counts[-1], tuple(
-        9 * 20 * n for n in per_call_launches("fused")))
+    with torch.no_grad():   # 9 chains, one graph
+        out, seconds, first, c = _serve_twice(
+            "interpolate", lambda first: generate.interpolate(
+                model_fn, _betas(20), gen, real.cpu().numpy(),
+                device="cuda")[0], 9 * 20, per_call_launches("fused"))
+    counts.append(c)
     if out.shape != (9, SERVE_BATCH, SEQ_LEN, CHANNELS) or \
             not torch.isfinite(out).all():
         fail(f"interpolants {tuple(out.shape)} are not finite or of the "
              "expected shape")
     say(f"interpolate fused: 9 interpolants x {SERVE_BATCH} pairs, 20 DDPM "
-        f"steps each, in {seconds:.3f} s on {smi}; launches {counts[-1]}")
+        f"steps each, in {seconds:.3f} s on {smi} (9 chains replaying one "
+        f"graph; the first call, capture included, {first:.3f} s); launches "
+        f"{counts[-1]}")
     return counts
 
 
@@ -1525,13 +1591,13 @@ def _sample_kw(kw):
     return kw
 
 
-def _fewstep_warmup(model_fn, sampling, kw):
+def _fewstep_warmup(model_fn, sampling, kw, batch):
+    """The chain's first call at the shape to be served: it captures the
+    step's CUDA graph (its warm-up launches counted nowhere)."""
     from smd_tpu_torch.sampling import generate
-    kw = _sample_kw(kw)
-    kw["ddim_steps"] = min(kw.get("ddim_steps", 2), 2)
     generate.sample(model_fn, _betas(), None, (SEQ_LEN, CHANNELS),
-                    num_samples=8, sampling=sampling, collect_steps=0,
-                    collect_metrics=False, device="cuda", **kw)
+                    num_samples=batch, sampling=sampling, collect_steps=0,
+                    collect_metrics=False, device="cuda", **_sample_kw(kw))
 
 
 def phase_fewstep_int8_flash(smi):
@@ -1564,7 +1630,8 @@ def phase_distill(state, smi):
     against the plain versions."""
     from smd_tpu_torch import cli
     from smd_tpu_torch.sampling import generate
-    from smd_tpu_torch.training import consistency, distill, graphs
+    from smd_tpu_torch.training import consistency, distill
+    from smd_tpu_torch.utils import graphs
     model = _fused_from(state)
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     train_ds, _ = cli.dataset_from_flags()
@@ -1868,16 +1935,28 @@ def _vs_cpu(what, model, args, grads=False):
 
 @contextlib.contextmanager
 def _timed(module, name, seconds):
-    """Replace ``module.name`` with a wrapper that appends the seconds of
-    each call, between two synchronizes, to ``seconds``."""
+    """Replace ``module.name`` with a wrapper that calls it twice, as a
+    second request of the same shape would come, the generator (its first
+    argument that is one) put back between: the first call captures the
+    chain's CUDA graph, the second replays it. Appends (the second call's
+    seconds, the first's), each between two synchronizes, to ``seconds``;
+    returns the second call's output, which equals a single call's."""
     fn = getattr(module, name)
 
     def timed(*args, **kwargs):
+        gens = [a for a in args if isinstance(a, torch.Generator)]
+        state = gens[0].get_state() if gens else None
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        if gens:
+            gens[0].set_state(state)
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+        seconds.append((time.perf_counter() - t0, first))
         return out
 
     setattr(module, name, timed)
@@ -1889,8 +1968,9 @@ def _timed(module, name, seconds):
 
 def _serve_cli(argv, what, smi, shape, calls):
     """``sample_ncsn.main`` on ``argv`` (no flush), timed whole and in its
-    ``generate.sample`` call alone (between two synchronizes); fails unless
-    the samples are finite, of ``shape``, and no kernel launched."""
+    ``generate.sample`` call alone (between two synchronizes, the second of
+    two calls: ``_timed``); fails unless the samples are finite, of
+    ``shape``, and no kernel launched."""
     from smd_tpu_torch import sample_ncsn
     from smd_tpu_torch.sampling import generate
     chain = []
@@ -1907,12 +1987,14 @@ def _serve_cli(argv, what, smi, shape, calls):
         fail(f"sample_ncsn {what}: samples {gen.shape}, expected {shape} "
              "and finite")
     say(f"sample_ncsn {what}: {shape[0]} requests of {shape[1:]}, the "
-        f"chain {chain[0]:.3f} s = {shape[0] / chain[0]:.1f} seqs/s, "
-        f"{1e3 * chain[0] / calls:.3f} ms per model call ({calls} calls; "
-        f"metrics and snapshots collected, as the CLI does), {seconds:.3f} "
-        f"s with flags, data and model load, on {smi}; samples in "
+        f"chain {chain[0][0]:.3f} s = {shape[0] / chain[0][0]:.1f} seqs/s, "
+        f"{1e3 * chain[0][0] / calls:.3f} ms per model call ({calls} calls; "
+        f"metrics and snapshots collected, as the CLI does; the step "
+        f"captured in a CUDA graph and replayed; the first call, capture "
+        f"included, {chain[0][1]:.3f} s), {seconds:.3f} s with flags, data, "
+        f"model load and both calls, on {smi}; samples in "
         f"[{float(gen.min()):.3f}, {float(gen.max()):.3f}]")
-    return chain[0]
+    return chain[0][0]
 
 
 def phase_dense_ddpm(tmp, smi):
@@ -2121,8 +2203,10 @@ def phase_mdn(tmp, smi):
             fail(f"sample_mdn {name}: samples {gen.shape}, expected "
                  f"{(MDN_SERVE, SEQ_LEN, CHANNELS)} and finite")
         say(f"sample_mdn {name}: {MDN_SERVE} requests of {SEQ_LEN}x"
-            f"{CHANNELS} decoded in {seconds[0]:.3f} s = "
-            f"{MDN_SERVE / seconds[0]:.1f} seqs/s on {smi}; gate: held-out "
+            f"{CHANNELS} decoded in {seconds[0][0]:.3f} s = "
+            f"{MDN_SERVE / seconds[0][0]:.1f} seqs/s on {smi} (replayed; "
+            f"the first call, capture included, {seconds[0][1]:.3f} s); "
+            f"gate: held-out "
             f"NLL {gates['heldout_nll']:.3f} against the Gaussian baseline "
             f"{gates['gaussian_nll']:.3f} (margin "
             f"{cli.FLAGS.nll_gate_margin}), marginal deviation "
@@ -2260,33 +2344,32 @@ def phase_mdn_long(smi):
     del state
 
     served = [trained]
+    full = lambda t: bf16(t, shift=False)   # noqa: E731 (one key)
     for name in ("ar_decode", "ar_decode_cached"):
-        g = torch.Generator(device="cuda").manual_seed(14)
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if name == "ar_decode":
-            out = mdn_decode.ar_decode(
-                g, lambda t: bf16(t, shift=False), MDN_LONG_BATCH,
-                steps=LONG_SEQ_LEN, channels=CHANNELS, log_sigma_cap=0.0,
-                device="cuda")
-        else:
-            out = mdn_decode.ar_decode_cached(
+
+        def run(first, name=name):
+            g = torch.Generator(device="cuda").manual_seed(13 if first
+                                                          else 14)
+            if name == "ar_decode":
+                return mdn_decode.ar_decode(
+                    g, full, MDN_LONG_BATCH, steps=LONG_SEQ_LEN,
+                    channels=CHANNELS, log_sigma_cap=0.0, device="cuda")
+            return mdn_decode.ar_decode_cached(
                 g, bf16, MDN_LONG_BATCH, steps=LONG_SEQ_LEN,
                 channels=CHANNELS, log_sigma_cap=0.0)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = _counts()
-        expected = layers * LONG_SEQ_LEN if name == "ar_decode" else 0
-        if counts != (0, 0, 0, expected):
-            fail(f"{name} at S=512 launched {counts}, expected {expected} "
-                 "flash")
+
+        # ar_decode: 511 replays of the captured step and the last step, a
+        # call of its own: 512 full forwards of 6 flash launches.
+        out, seconds, first, counts = _serve_twice(
+            f"{name} at S=512", run, LONG_SEQ_LEN,
+            (0, 0, 0, layers if name == "ar_decode" else 0))
         if out.shape != shape or not torch.isfinite(out).all():
             fail(f"{name} at S=512: {tuple(out.shape)}, expected {shape} and "
                  "finite")
         say(f"MDN {name} bf16, {MDN_LONG_BATCH} requests of "
             f"{LONG_SEQ_LEN}x{CHANNELS}: {seconds:.3f} s = "
-            f"{MDN_LONG_BATCH / seconds:.2f} seqs/s, launches {counts}, on "
+            f"{MDN_LONG_BATCH / seconds:.2f} seqs/s (replayed; the first "
+            f"call, capture included, {first:.3f} s), launches {counts}, on "
             f"{smi}")
         served.append(counts)
     return served
@@ -2737,7 +2820,8 @@ def phase_noise_to_midi(tmp, smi, codec):
     kw = dict(num_samples=GEN_BATCH, sampling="dpmpp", ddim_steps=GEN_STEPS,
               collect_steps=0, collect_metrics=False, device="cuda")
     with torch.no_grad():
-        _fewstep_warmup(model_fn, "dpmpp", dict(ddim_steps=GEN_STEPS))
+        _fewstep_warmup(model_fn, "dpmpp", dict(ddim_steps=GEN_STEPS),
+                        GEN_BATCH)
         gen = torch.Generator(device="cuda").manual_seed(23)
         _reset_counts()
         (samples, _, _), seconds = _synced(lambda: generate.sample(
@@ -2815,8 +2899,10 @@ def phase_codec_clis(tmp, smi, codec_path):
             f"--vae_params={codec_path}", f"--output_dir={out_dir}",
             "--sampler=dpmpp", f"--steps={GEN_STEPS}", f"--n={MELODIES}"]))
     counts = _counts()
-    expected = tuple(GEN_STEPS * n for n in per_call_launches(
-        "standard", LONG_SEQ_LEN))
+    # One call: the DPM++ step captured after its warm-up steps.
+    from smd_tpu_torch.utils import graphs
+    expected = tuple((GEN_STEPS + graphs.WARMUP_STEPS) * n
+                     for n in per_call_launches("standard", LONG_SEQ_LEN))
     if counts != expected:
         fail(f"generate_melodies at S={LONG_SEQ_LEN} launched (attention, "
              f"film, w8a8, flash) {counts}, expected {expected}")
@@ -3091,7 +3177,9 @@ def phase_sampling_metrics(tmp, smi):
                 collect_steps=0, collect_metrics=False, device="cuda")
         return out.cpu().numpy().astype(np.float64)
 
-    _fewstep_warmup(model_fn, "dpmpp", {"ddim_steps": 8})
+    with torch.no_grad():
+        _fewstep_warmup(model_fn, "dpmpp", {"ddim_steps": 8},
+                        METRIC_REQUESTS)
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -3610,7 +3698,7 @@ def phase_dryrun_multichip(smi):
 
 
 # Captured training chunks (phase 26): each trainer's step captured in a
-# CUDA graph (smd_tpu_torch/training/graphs.py) and replayed CHUNK_STEPS
+# CUDA graph (smd_tpu_torch/utils/graphs.py) and replayed CHUNK_STEPS
 # times, against as many eager steps from the same state and generator
 # state, at full width: the fused flagship at bf16 and the standard one in
 # float32 on 64 x 32x42, the MDN on 128 x 32x42, a progressive-distillation
@@ -3814,12 +3902,12 @@ def _chunk_profile(trainer, snap, captured):
 @contextlib.contextmanager
 def _stale_slot():
     """A planted fault: every replay of a chunk reads slot 0's batch."""
-    from smd_tpu_torch.training import graphs
+    from smd_tpu_torch.utils import graphs
     body = graphs._Slots.body
 
-    def stale(self, step):
+    def stale(self, step, variant=None):
         return body(self, lambda slot: step(
-            {**slot, "batch": self.inputs["batch"][0]}))
+            {**slot, "batch": self.inputs["batch"][0]}), variant)
 
     graphs._Slots.body = stale
     try:
@@ -3830,7 +3918,7 @@ def _stale_slot():
 
 def phase_chunks(smi, modes=CHUNK_MODES):
     """26: each trainer's captured chunk against its eager steps."""
-    from smd_tpu_torch.training import graphs
+    from smd_tpu_torch.utils import graphs
     counts = []
     for mode in modes:
         t0 = time.perf_counter()
@@ -3913,6 +4001,287 @@ def phase_chunks(smi, modes=CHUNK_MODES):
         del trainer, snap, eager, again, first, captured, faulty
         torch.cuda.empty_cache()
     return counts
+
+
+# Captured sampler chains (phase 27): each sampler's step captured in a CUDA
+# graph (smd_tpu_torch/utils/graphs.py) and replayed once a step, against
+# the same chain run eagerly (``graphs.eager()``) from a generator seeded
+# alike, at full width. Bit-equal (limit 0, ``torch.equal``): state,
+# collection, metrics and the generator's state after the chain; launches
+# those of the eager chain plus the warm-up steps of the first call. The
+# planted fault: a second call through the kept graph with another
+# schedule of the same length (the MDN decodes: another seed) must equal a
+# fresh eager chain on it and differ from the first call's result, which a
+# constant baked into the graph or a stale table would not.
+CHAIN_BATCH = 64            # requests a chain at S=32 (phase 5's)
+CHAIN_LONG_STEPS = 200      # DDPM steps at 16 x 512x42, cut from 1000
+CHAIN_NCSN_BATCH = 256      # DenseNCSN requests (phase 19 serves 1000)
+CHAIN_ALD_STEPS = 2         # ALD steps a level, as phase 19's snapshots
+CHAIN_PROFILE = 8           # steps of the short chain under the profiler
+# (batch, positions) of the MDN's cached decode and of its full-forward
+# decode (4 requests at 512: 512 device-bound forwards of 4.4 ms).
+MDN_CHAIN = (((128, SEQ_LEN), (128, SEQ_LEN)),
+             ((LONG_BATCH, LONG_SEQ_LEN), (4, LONG_SEQ_LEN)))
+
+
+def _dense_ncsn():
+    """``configs/ncsn-mel-1seq-512.cfg``'s DenseNCSN (6 x 2048) with
+    weights from a seed, cast to bf16 as ``sample_ncsn`` serves it."""
+    from smd_tpu_torch.models import get_model
+    from smd_tpu_torch.utils.flax_params import (load_flax_params,
+                                                 random_flax_params)
+    model = get_model("DenseNCSN", device="cuda", data_channels=FLAT_WIDTH,
+                      num_layers=6, mlp_dims=2048)
+    load_flax_params(model, random_flax_params(model, seed=0))
+    model = model.to(torch.bfloat16).eval()
+
+    def model_fn(x, sigma):
+        return model(x.to(torch.bfloat16), sigma.to(torch.bfloat16)).float()
+    return model, model_fn
+
+
+def _outs(out):
+    """A chain's tensors (state, collection, metrics), the Nones left
+    out."""
+    return tuple(t for t in (out if isinstance(out, tuple) else (out,))
+                 if t is not None)
+
+
+def _chain_cases():
+    """The cases: ``call(fn, gen, which)`` runs the chain, ``which`` "main",
+    "alt" (another schedule of the same length) or "short" (CHAIN_PROFILE
+    steps or levels, replaying the same graphs; the MDN decodes' whole
+    chain)."""
+    from smd_tpu_torch.diffusion import schedules
+    from smd_tpu_torch.sampling import generate, mdn_decode
+    from smd_tpu_torch.training import distill
+
+    def betas(which, steps=SERVE_STEPS):
+        if which == "short":
+            steps = CHAIN_PROFILE
+        end = 0.02 if which == "alt" else 0.01
+        return schedules.noise_schedule(1e-6, end, steps, "linear")
+
+    def sampler(sampling, seq_len=SEQ_LEN, batch=CHAIN_BATCH, steps=None,
+                **kw):
+        def call(fn, gen, which):
+            b = betas(which, steps or SERVE_STEPS)
+            extra = dict(kw)
+            if sampling in ("ddim", "dpmpp") and which == "short":
+                extra["ddim_steps"] = min(extra["ddim_steps"], CHAIN_PROFILE)
+            if "grid_steps" in extra:
+                extra["distill_grid"] = distill.distill_grid(
+                    betas(which if which == "alt" else "main"),
+                    extra.pop("grid_steps"))
+            if "infill" in extra:
+                extra.pop("infill")
+                real = torch.rand(batch, seq_len, CHANNELS,
+                                  generator=torch.Generator().manual_seed(3))
+                samples, masks = generate.infill_edge_mask(
+                    real.numpy() * 2 - 1)
+                extra.update(infill_samples=samples, infill_masks=masks)
+            extra.setdefault("collect_steps", 0)
+            extra.setdefault("collect_metrics", False)
+            return generate.sample(fn, b, gen, (seq_len, CHANNELS),
+                                   num_samples=batch, sampling=sampling,
+                                   device="cuda", **extra)
+        return call
+
+    def langevin(sampling):
+        def call(fn, gen, which):
+            levels = CHAIN_PROFILE if which == "short" else 500
+            sig = schedules.noise_schedule(
+                15.0, 0.02 if which == "alt" else 0.01, 500, "geometric")
+            # CHAIN_PROFILE snapshots: the short chain's collection has
+            # the main chain's shape, so it replays the same graphs.
+            return generate.sample(
+                fn, sig[:levels], gen, (FLAT_WIDTH,),
+                num_samples=CHAIN_NCSN_BATCH, sampling=sampling,
+                epsilon=9.64e-7, steps=CHAIN_ALD_STEPS,
+                collect_steps=CHAIN_PROFILE, device="cuda")
+        return call
+
+    def mdn(name, batch, steps):
+        def call(model, gen, which):
+            if which == "alt":   # the decodes' data: the seed
+                gen.manual_seed(gen.initial_seed() + 1000)
+            if name == "ar_decode_cached":
+                return mdn_decode.ar_decode_cached(
+                    gen, model, batch, steps=steps, channels=CHANNELS,
+                    log_sigma_cap=0.0)
+            return mdn_decode.ar_decode(
+                gen, model.full, batch, steps=steps, channels=CHANNELS,
+                log_sigma_cap=0.0, device="cuda")
+        return call
+
+    fused, int8 = per_call_launches("fused"), per_call_launches("int8")
+    std = per_call_launches("standard", LONG_SEQ_LEN)
+    none = (0, 0, 0, 0)
+    short = CHAIN_PROFILE
+    # (name, model, call, model calls, launches a call, graphs, model calls
+    # of the short chain); grouped by model, each built once.
+    cases = [
+        ("DDPM-1000 fused", "fused", sampler("ddpm"), SERVE_STEPS, fused, 1,
+         short),
+        ("DDIM-50 eta 0", "fused", sampler("ddim", ddim_steps=50), 50,
+         fused, 1, short),
+        # The last step draws neither noise: a second graph.
+        ("DDIM-50 eta 1 infill", "fused",
+         sampler("ddim", ddim_steps=50, ddim_eta=1.0, infill=True), 50,
+         fused, 2, short),
+        ("DPM++-8 collection and metrics", "fused",
+         sampler("dpmpp", ddim_steps=8, collect_steps=8,
+                 collect_metrics=True), 8, fused, 1, short),
+        ("distilled-2", "fused", sampler("distilled", grid_steps=2), 2,
+         fused, 1, 2),
+        # Step 0 does not re-noise: a second graph.
+        ("consistency-2", "fused",
+         sampler("consistency", grid_steps=32, ddim_steps=2), 2, fused, 2,
+         2),
+        ("DDPM-1000 int8", "int8", sampler("ddpm"), SERVE_STEPS, int8, 1,
+         short),
+        (f"DDPM-{CHAIN_LONG_STEPS} standard at {LONG_BATCH} x "
+         f"{LONG_SEQ_LEN}", "standard",
+         sampler("ddpm", LONG_SEQ_LEN, LONG_BATCH, CHAIN_LONG_STEPS),
+         CHAIN_LONG_STEPS, std, 1, short),
+        # + the final denoise, a call of its own.
+        (f"ALD 500 x {CHAIN_ALD_STEPS}", "ncsn", langevin("ald"),
+         500 * CHAIN_ALD_STEPS + 1, none, 1, short * CHAIN_ALD_STEPS + 1),
+        # The last level draws no noise: a second graph.
+        ("CAS 500", "ncsn", langevin("cas"), 501, none, 2, short + 1)]
+    for (batch, steps), (full_batch, _) in MDN_CHAIN:
+        flash = MDN_WIDTH["num_layers"] if steps >= LONG_SEQ_LEN else 0
+        cases.append((f"ar_decode_cached {batch} x {steps}", f"mdn{steps}",
+                      mdn("ar_decode_cached", batch, steps), steps, none, 1,
+                      steps))
+        # 511 replays and the last step, a call of its own.
+        cases.append((f"ar_decode {full_batch} x {steps}", f"mdn{steps}",
+                      mdn("ar_decode", full_batch, steps), steps,
+                      (0, 0, 0, flash), 1, steps))
+    return cases
+
+
+def _chain_model(kind):
+    """(model, what a case calls) for a case's model kind."""
+    if kind == "fused":
+        return _flagship()
+    if kind == "int8":
+        model, fn = _int8_flagship()
+        with torch.no_grad():   # the K-major weights, made once
+            fn(torch.zeros(8, SEQ_LEN, CHANNELS, device="cuda"),
+               torch.full((8, 1, 1), 0.5, device="cuda"))
+        return model, fn
+    if kind == "standard":
+        return _standard_flagship()
+    if kind == "ncsn":
+        return _dense_ncsn()
+    model = _mdn(int(kind[3:])).eval()
+    model.full = lambda t: model(t, shift=False)
+    return model, model
+
+
+def _chain_run(fn, call, seed, which, eager):
+    """(outputs, generator state after, seconds, launches, peak GB) of one
+    chain from a generator seeded with ``seed``."""
+    from smd_tpu_torch.utils import graphs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), (graphs.eager() if eager
+                           else contextlib.nullcontext()):
+        out = _outs(call(fn, gen, which))
+    torch.cuda.synchronize()
+    return (out, gen.get_state(), time.perf_counter() - t0, _counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _bit_equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_chains(smi):
+    """27: every sampler chain and both MDN decodes, captured against
+    eager."""
+    from smd_tpu_torch.utils import graphs
+    served, rows = [], []
+    models = {}
+    for (name, kind, call, calls, per_call, graphs_made,
+         short_calls) in _chain_cases():
+        if kind not in models:
+            graphs.release()
+            models.clear()
+            torch.cuda.empty_cache()
+            models[kind] = _chain_model(kind)
+        fn = models[kind][1]
+        t_case = time.perf_counter()
+        eager = _chain_run(fn, call, 27, "main", True)
+        expected = tuple(calls * n for n in per_call)
+        if eager[3] != expected:
+            fail(f"27 {name}: the eager chain launched {eager[3]}, "
+                 f"expected {expected}")
+        before = _warmups()
+        first = _chain_run(fn, call, 27, "main", False)
+        made = _warmups() - before
+        # The planted fault: another schedule through the kept graph (a
+        # replaying call), against a fresh eager chain on it.
+        alt = _chain_run(fn, call, 27, "alt", False)
+        alt_eager = _chain_run(fn, call, 27, "alt", True)
+        if made != graphs.WARMUP_STEPS * graphs_made or \
+                _warmups() != before + made:
+            fail(f"27 {name}: {made} warm-up steps at the first call and "
+                 f"{_warmups() - before - made} after, expected "
+                 f"{graphs.WARMUP_STEPS} for each of {graphs_made} graphs "
+                 "and none")
+        warm = tuple((calls + made) * n for n in per_call)
+        for what, run, ref, launches in (
+                ("the capturing call", first, eager, warm),
+                ("a replaying call on another schedule", alt, alt_eager,
+                 expected)):
+            if not _bit_equal(run[0], ref[0]):
+                gaps = [float((x.float() - y.float()).abs().max())
+                        for x, y in zip(run[0], ref[0])]
+                fail(f"27 {name}: {what} differs from its eager chain (max "
+                     f"|diff| of state, collection, metrics {gaps}): a "
+                     "baked or stale value where the schedule changed")
+            if not torch.equal(run[1], ref[1]):
+                fail(f"27 {name}: {what} left the generator elsewhere than "
+                     "its eager chain")
+            if run[3] != launches or ref[3] != expected:
+                fail(f"27 {name}: {what} launched {run[3]}, its eager "
+                     f"chain {ref[3]}, expected {launches} and {expected} "
+                     f"({made} warm-up steps' at the first call)")
+        if torch.equal(alt[0][0], first[0][0]):
+            fail(f"27 {name}: another schedule gave the first schedule's "
+                 "state: the planted fault cannot show")
+        # The captured short chain under the profiler (the MDN decodes their
+        # whole chain, at 32 positions only); the eager step's launches are
+        # profile_torch_sampler.py --eager's.
+        short = "main" if kind.startswith("mdn") else "short"
+        prof = _profile(lambda: _chain_run(fn, call, 27, short, False),
+                        short_calls) if short_calls <= SEQ_LEN else \
+            (0.0,) * 5
+        served.append(alt[3])
+        rows.append(name)
+        say(f"27 {name}: captured bit-equal to eager (state, collection, "
+            f"metrics, generator) at the capturing call and at a replaying "
+            f"call on another schedule (the planted fault: unlike the "
+            f"first); launches {alt[3]} ({first[3]} at the first call, "
+            f"{made} warm-up steps, {graphs_made} graphs); wall s eager "
+            f"{eager[2]:.3f}, captured {alt[2]:.3f}, first call "
+            f"{first[2]:.3f}; captured, profiled ({short_calls} model "
+            f"calls; 0 where not profiled): host launches a model call "
+            f"{prof[4]:.1f}, device-busy ms a call {prof[1]:.3f}, idle "
+            f"{prof[3]:.3f}; peak memory eager "
+            f"{eager[4]:.2f} GB, captured {first[4]:.2f} GB; case "
+            f"{time.perf_counter() - t_case:.1f} s; on {smi}")
+    graphs.release()
+    models.clear()
+    torch.cuda.empty_cache()
+    say(f"27: {len(rows)} chains captured bit-equal to eager, each planted "
+        "stale-schedule fault caught")
+    return served
 
 
 def main():
@@ -4009,6 +4378,8 @@ def main():
             f"{time.perf_counter() - t25:.1f} s")
     with Phase("26 captured training chunks"):
         served.extend(phase_chunks(smi))
+    with Phase("27 captured sampler chains"):
+        served.extend(phase_chains(smi))
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -3,6 +3,7 @@
 
     python3 profile_torch_sampler.py [--layout fused|int8|standard|dense|mdn]
                                      [--batch 64] [--seq_len 32] [--steps 20]
+                                     [--eager]
 
 Serves a bf16 flagship TransformerDDPM of ``chip_smoke.py`` on
 ``--seq_len``x42 latents with ``generate.sample(sampling="ddpm")`` for
@@ -16,7 +17,11 @@ there) and ``standard`` (the einsum trunk, or the flash-attention kernel at
 (``--seq_len`` unused); ``mdn`` decodes ``--steps`` positions with
 ``mdn_decode.ar_decode_cached`` through ``configs/mdn-mel-32seq-512.cfg``'s
 TransformerMDN (float32, as ``sample_mdn`` serves it; a step is one
-position over the KV cache). It prints: wall seconds per step
+position over the KV cache). The chain serves as a user's does: its step
+captured in a CUDA graph and replayed once a step (a first call of the same
+shape captures it, outside the timings); ``--eager`` runs the step eagerly
+instead (``utils.graphs.eager``), the loop the capture replaced. It prints:
+wall seconds per step
 (host clock around a synchronised run), the device's busy time per step
 (union of the kernels' intervals in the trace) and its idle share, the
 device time by kind (the port's kernels, the library's matmuls, PyTorch's
@@ -26,6 +31,7 @@ profiled steps goes to ``--trace_dir``, whose op profile
 (``smd_tpu_torch.utils.profiling``) is printed too. Needs a CUDA device.
 """
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
@@ -61,6 +67,9 @@ def main():
                          "decode")
     ap.add_argument("--trace_dir", default="chiprun_out/profile-sampler",
                     help="where the Chrome trace of the profiled steps goes")
+    ap.add_argument("--eager", action="store_true",
+                    help="run each step eagerly, not as a replay of its "
+                         "captured CUDA graph")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
     if args.layout == "mdn":
@@ -82,8 +91,10 @@ def main():
 
         def serve(steps, seed):
             return _serve(model_fn, steps, args.batch, shape, seed)
-    with torch.no_grad():
-        serve(3, 0)
+    from smd_tpu_torch.utils import graphs
+    with torch.no_grad(), (graphs.eager() if args.eager
+                           else contextlib.nullcontext()):
+        serve(args.steps, 0)    # the capture, outside the timings
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         serve(args.steps, 1)
@@ -93,10 +104,11 @@ def main():
         with profiling.trace(args.trace_dir, "cuda") as prof:
             serve(args.steps, 1)
 
+    how = "eager" if args.eager else "captured"
     report(prof, args.steps, wall, smi,
-           f"{args.layout}, batch {args.batch}, seq_len {args.seq_len}",
-           trace_dir=args.trace_dir, layout=args.layout, batch=args.batch,
-           seq_len=args.seq_len)
+           f"{args.layout} ({how}), batch {args.batch}, seq_len "
+           f"{args.seq_len}", trace_dir=args.trace_dir, layout=args.layout,
+           batch=args.batch, seq_len=args.seq_len, chain=how)
 
 
 # The port's CUDA kernels (smd_tpu_torch/csrc/), by name.

@@ -7,16 +7,38 @@ The NCSN family's ``annealed_langevin_dynamics`` (ALD) and
 ``distilled_ddim_dynamics`` and ``consistency_dynamics``; with infill
 masks, and snapshot collection and per-step metrics where the JAX samplers
 have them; the DDPM family in the (clipped x0, raw eps) basis as the JAX
-package is. A JAX sampler is one ``lax.scan`` program; here the steps are a
-Python loop that enqueues each step's kernels without waiting for the device
-(the per-step constants are host floats, computed once in float32 as JAX
-computes them, and nothing is read back inside the loop). Capturing the step
-in a CUDA graph is queued in ``ROADMAP.md``.
+package is.
+
+A JAX sampler is one ``lax.scan`` program. Here each sampler is one step
+body that reads its per-step constants from a float32 table (computed on
+the host in numpy float32 as JAX computes them, staged once a call) through
+a device index, and writes its state, snapshot slot and metrics in place;
+``utils/graphs.py`` captures that step in a CUDA graph on the card and
+replays it once a step, and runs it eagerly on the CPU (the plain version).
+Nothing of a chain's values is baked into a graph: a second call with the
+same model function, sampler, shapes and options replays the first call's
+graph with its own schedule, start and infill. The rules that make the
+eager and the captured step compute the same bits:
+
+- every per-step value, the model's noise-level input included, is a 0-d
+  device tensor from the table, never a Python float;
+- ``x0 = (x - sigma·eps) / alpha`` divides by a tensor, as the CPU and JAX
+  do (CUDA multiplies by the reciprocal of a Python float divisor);
+- a step-dependent branch is arithmetic on table entries where no draw
+  depends on it (DDPM's last step, DPM++'s Euler steps, CAS's last noise
+  amplitude, each a 0 in the table), else a variant of the step with a graph
+  of its own (a draw made before the last step only, consistency's first
+  step); the snapshot collection writes every step, into its slot or into
+  a spare row that is never returned; ALD's and CAS's final denoise and
+  consistency's final infill overwrite are calls of their own.
 
 Randomness comes from a ``torch.Generator``, or from pre-drawn noise so a
 test can replay the JAX package's draws (each sampler's docstring gives the
 JAX order). Draws that JAX multiplies by zero (the infill noise without
-masks, the step noise of the last step or of DDIM at eta=0) are not made.
+masks, the step noise of the last step of DDIM at eta>0, CAS's after its
+last level, the infill noise of the few-step samplers' last step) are not
+made, as in the eager loop this replaces; DDPM draws its last step's noise
+and multiplies it by the table's 0.
 """
 from __future__ import annotations
 
@@ -26,6 +48,7 @@ import numpy as np
 import torch
 
 from smd_tpu_torch.diffusion import schedules
+from smd_tpu_torch.utils import graphs
 
 __all__ = ["SamplerOutput", "annealed_langevin_dynamics",
            "consistent_langevin_dynamics", "diffusion_dynamics",
@@ -65,15 +88,12 @@ def _collection_slots(total_steps, collect_steps) -> dict:
     return slots
 
 
-def _init_collection(collect_steps, start, extra_slots: int = 0):
-    """The snapshot buffer: ``start``, then ``collect_steps`` slots, then
-    ``extra_slots`` (the Langevin samplers' final denoise step)."""
-    if collect_steps <= 0:
-        return None
-    buf = torch.zeros((collect_steps + 1 + extra_slots, *start.shape),
-                      dtype=start.dtype, device=start.device)
-    buf[0] = start
-    return buf
+def _slot_table(total_steps, collect_steps, spare) -> np.ndarray:
+    """Step j's collection slot (``_collection_slots`` of j + 1), or
+    ``spare``, the row past the returned ones, where no slot matches."""
+    slots = _collection_slots(total_steps, collect_steps)
+    return np.asarray([slots.get(j + 1, spare) for j in range(total_steps)],
+                      f32)
 
 
 def _resolve_infill(init, infill_samples, infill_masks):
@@ -89,39 +109,150 @@ def _resolve_infill(init, infill_samples, infill_masks):
     return infill_samples, infill_masks, 1 - infill_masks
 
 
-def _drawer(generator, init, noise):
-    """draw(which, i): ``noise[which][i]`` when pre-drawn, else a fresh
-    normal of ``init``'s shape from ``generator``."""
-    def draw(which, i):
-        if noise is not None:
-            return noise[which][i].to(init)
-        return torch.randn(init.shape, generator=generator,
-                           dtype=init.dtype, device=init.device)
-    return draw
-
-
 def _cond(state, value):
-    """The model's noise-level input: ``value`` broadcast to (B, 1, ..., 1)."""
-    return torch.full((state.shape[0], *([1] * (state.dim() - 1))),
-                      float(value), dtype=state.dtype, device=state.device)
+    """The model's noise-level input: the 0-d ``value`` broadcast to (B, 1,
+    ..., 1)."""
+    return value.to(state.dtype).expand(
+        state.shape[0], *([1] * (state.dim() - 1))).contiguous()
 
 
 def _metric_row(eps, state, next_state, level, noise_norm):
-    """(eps norm, step norm, noise level, noise norm); ``level`` is a 0-d
-    tensor on the device (a host scalar would be a copy per step)."""
+    """(eps norm, step norm, noise level, noise norm), 0-d device tensors
+    each."""
     return torch.stack([_per_example_norm(eps),
                         _per_example_norm(state - next_state), level,
                         noise_norm])
 
 
-def _levels(values, init, collect_metrics):
-    """The per-step noise levels on ``init``'s device, for the metrics."""
-    return torch.as_tensor(values).to(init.device) if collect_metrics \
-        else None
+def _draw(s, generator, which, like):
+    """The step's pre-drawn ``noise{which}`` row when the call passed
+    noise, else a fresh normal of ``like``'s shape from ``generator``."""
+    name = f"noise{which}"
+    if name in s:
+        return s[name]
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
 
 
-def _stack_metrics(metrics):
-    return torch.stack(metrics, dim=1)[:, :, None] if metrics else None
+def _collect(s, next_state):
+    """Write the step's state into its collection slot (or the spare
+    row)."""
+    s["collection"].index_copy_(0, s["slot"].long().reshape(1),
+                                next_state.unsqueeze(0))
+
+
+def _statics(start, infill, collect_rows, metrics, extra=()):
+    """The per-call buffers: the state ``x``, the infill samples, masks and
+    keep, the collection (``collect_rows`` rows with the spare, zero),
+    the zero noise norm of the metrics, and ``extra`` (name, value)."""
+    out = {"x": start}
+    if infill[1] is not None:
+        out.update(samples=infill[0], masks=infill[1], keep=infill[2])
+    if collect_rows:
+        out["collection"] = graphs.zeros((collect_rows, *start.shape),
+                                         start.dtype, start.device)
+    if metrics:
+        out["zero_norm"] = _per_example_norm(torch.zeros_like(start))
+    out.update(extra)
+    return out
+
+
+def _run(label, model_fn, flags, make_step, generator, start, tables,
+         statics, noise, variants):
+    """Run the chain's steps, one a variant, through the kept chain of
+    ``label`` over ``model_fn``; ``noise`` (pre-drawn stacks, indexed by
+    loop step) goes in as per-step inputs. Returns (per-call buffers,
+    metrics rows)."""
+    k = len(variants)
+    inputs = {}
+    for j, n in enumerate(noise or ()):
+        if n is not None and k:
+            inputs[f"noise{j}"] = n[:k].to(start)
+    run = graphs.chain(label, model_fn, flags + (tuple(inputs),),
+                       start.device, make_step)
+    return run(generator, inputs, tables, statics, variants)
+
+
+def _outputs(bufs, rows, start, collect_rows, metrics_shape=None):
+    """(state, collection without its spare row, metrics (4, ...)) as
+    tensors of their own, the collection's slot 0 the chain's start."""
+    collection = None
+    if collect_rows:
+        collection = bufs["collection"][:collect_rows - 1].clone()
+        collection[0] = start
+    metrics = None
+    if "m" in rows:
+        metrics = rows["m"].t()
+        metrics = metrics[:, :, None] if metrics_shape is None else \
+            metrics.reshape(4, *metrics_shape)
+    return bufs["x"].clone(), collection, metrics
+
+
+def _start(init, infill):
+    """The chain's start: ``init`` with the infill samples where masked."""
+    samples, masks, keep = infill
+    return init if masks is None else init * keep + samples * masks
+
+
+def _collect_rows(collect_steps, extra_slots=0):
+    """Rows of a chain's collection buffer: the start, ``collect_steps``
+    slots, ``extra_slots``, and the spare row; 0 without collection."""
+    return collect_steps + 2 + extra_slots if collect_steps > 0 else 0
+
+
+def _langevin_step(model_fn, generator, infill, collect, metrics,
+                   consistent):
+    def step(s):
+        x = s["x"]
+        if infill:
+            y = s["samples"] + s["sigma"] * _draw(s, generator, 1, x)
+        grad = model_fn(x, s["sigma"])
+        next_state = x + s["alpha"] * grad
+        noise_norm = s.get("zero_norm")
+        if not consistent or s["variant"]:
+            step_noise = s["amp"] * _draw(s, generator, 0, x)
+            next_state = next_state + step_noise
+            if metrics:
+                noise_norm = _per_example_norm(step_noise)
+        if infill:
+            next_state = next_state * s["keep"] + y * s["masks"]
+        if collect:
+            _collect(s, next_state)
+        out = {}
+        if metrics:
+            out["m"] = torch.stack([
+                _per_example_norm(grad), _per_example_norm(s["alpha"] * grad),
+                s["alpha"], noise_norm])
+        x.copy_(next_state)
+        return out
+    return step
+
+
+def langevin_tables(sigmas, epsilon, T, consistent, collect_steps=0,
+                    spare=0):
+    """ALD's (``consistent=False``, T steps a level) or CAS's (one step a
+    level) per-step table, in float32 as JAX computes it: ``sigma`` (the
+    model's input and the infill noise's scale), ``alpha`` = ε (σ/σ_L)²,
+    ``amp`` (ALD √(2α); CAS β·σᵢ₊₁, 0 after the last level) and the
+    collection ``slot`` (``spare`` where none); with σ_L² for the final
+    denoise."""
+    sig = np.asarray(torch.as_tensor(sigmas, dtype=torch.float32).cpu())
+    L = sig.shape[0]
+    eps32 = f32(epsilon)
+    sig_last2 = sig[-1] * sig[-1]
+    alphas = eps32 * np.square(sig / sig[-1])
+    beta = np.sqrt(f32(1) - np.square(f32(1) - eps32 / sig_last2))
+    steps = L if consistent else L * T
+    level = np.arange(steps) if consistent else np.arange(steps) // T
+    if consistent:
+        amp = [beta * sig[i + 1] if i < L - 1 else f32(0) for i in level]
+    else:
+        amp = [np.sqrt(f32(2) * alphas[i]) for i in level]
+    tables = {"sigma": sig[level], "alpha": alphas[level],
+              "amp": np.asarray(amp, f32)}
+    if collect_steps > 0:
+        tables["slot"] = _slot_table(steps, collect_steps, spare)
+    return tables, sig, sig_last2
 
 
 def _langevin_chain(generator, model_fn, sigmas, init, epsilon, T,
@@ -129,69 +260,31 @@ def _langevin_chain(generator, model_fn, sigmas, init, epsilon, T,
                     collect_metrics, noise, consistent):
     """ALD (``consistent=False``: T steps at each of the L levels) or CAS
     (one step a level), as the two JAX samplers compute them."""
-    sig = np.asarray(torch.as_tensor(sigmas, dtype=torch.float32).cpu())
-    L = sig.shape[0]
-    eps32 = f32(epsilon)
-    sig_last2 = sig[-1] * sig[-1]
-    # α = ε (σ/σ_L)² per level, and CAS's β, in float32 as JAX computes them.
-    alphas = eps32 * np.square(sig / sig[-1])
-    beta = np.sqrt(f32(1) - np.square(f32(1) - eps32 / sig_last2))
+    L = int(torch.as_tensor(sigmas).shape[0])
     steps = L if consistent else L * T
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    infill = infill_masks is not None
-    start = init * keep + infill_samples * infill_masks if infill else init
     collect_steps = min(collect_steps, steps)
-    collection = _init_collection(collect_steps, start, int(denoise))
-    slots = _collection_slots(steps, collect_steps)
-    draw = _drawer(generator, init, noise)
-    # The model's sigma: a 0-d float32 tensor on the device, as JAX passes
-    # sigmas[i]; indexed, not copied from the host each step.
-    levels = torch.as_tensor(sig).to(init.device)
-    alpha_levels = _levels(alphas, init, collect_metrics)
-    zero_norm = None
-    metrics = []
-
-    state = start
-    for n in range(steps):
-        level = n if consistent else n // T
-        sigma, alpha = sig[level], float(alphas[level])
-        if infill:
-            y = infill_samples + float(sigma) * draw(1, n)
-        grad = model_fn(state, levels[level])
-        if consistent:
-            amp = beta * sig[level + 1] if level < L - 1 else None
-        else:
-            amp = np.sqrt(f32(2) * alphas[level])
-        next_state = state + alpha * grad
-        step_noise = None
-        if amp is not None:
-            step_noise = float(amp) * draw(0, n)
-            next_state = next_state + step_noise
-        if infill:
-            next_state = next_state * keep + y * infill_masks
-        slot = slots.get(n + 1) if collection is not None else None
-        if slot is not None:
-            collection[slot] = next_state
-        if collect_metrics:
-            if step_noise is None and zero_norm is None:
-                zero_norm = _per_example_norm(torch.zeros_like(state))
-            metrics.append(torch.stack([
-                _per_example_norm(grad), _per_example_norm(alpha * grad),
-                alpha_levels[level], zero_norm if step_noise is None
-                else _per_example_norm(step_noise)]))
-        state = next_state
-
+    rows = _collect_rows(collect_steps, int(denoise))
+    tables, sig, sig_last2 = langevin_tables(sigmas, epsilon, T, consistent,
+                                             collect_steps, rows - 1)
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    start = _start(init, infill)
+    flags = (infill[1] is not None, rows > 0, collect_metrics, consistent)
+    variants = [bool(i < L - 1) for i in range(L)] if consistent else \
+        [True] * steps
+    bufs, metric_rows = _run(
+        "CAS" if consistent else "ALD", model_fn, flags,
+        lambda gen: _langevin_step(model_fn, gen, *flags), generator, start,
+        tables, _statics(start, infill, rows, collect_metrics), noise,
+        variants)
+    state, collection, metrics = _outputs(
+        bufs, metric_rows, start, rows, None if consistent else (L, T))
     if denoise:
-        state = state + float(sig_last2) * model_fn(state, levels[L - 1])
+        with torch.no_grad():
+            level = torch.as_tensor(sig).to(init.device)[L - 1]
+            state = state + float(sig_last2) * model_fn(state, level)
         if collection is not None:
             collection[-1] = state
-    if not metrics:
-        return SamplerOutput(state, collection, None)
-    stacked = torch.stack(metrics, dim=1)
-    stacked = stacked[:, :, None] if consistent else \
-        stacked.reshape(4, L, T)
-    return SamplerOutput(state, collection, stacked)
+    return SamplerOutput(state, collection, metrics)
 
 
 def annealed_langevin_dynamics(generator: Optional[torch.Generator],
@@ -257,6 +350,63 @@ def consistent_langevin_dynamics(generator: Optional[torch.Generator],
                            consistent=True)
 
 
+def _ddpm_step(model_fn, generator, infill, collect, metrics):
+    def step(s):
+        x = s["x"]
+        if infill:
+            y = s["y_a"] * s["samples"] + s["y_b"] * _draw(s, generator, 0,
+                                                           x)
+        step_noise = _draw(s, generator, 1, x) * s["noise_scale"]
+        eps_recon = model_fn(x, _cond(x, s["cond"]))
+        state_recon = (s["recip"] * x - s["m1"] * eps_recon).clamp(-1.0, 1.0)
+        next_state = s["mu1"] * state_recon + s["mu2"] * x + step_noise
+        if infill:
+            next_state = next_state * s["keep"] + y * s["masks"]
+        if collect:
+            _collect(s, next_state)
+        out = {}
+        if metrics:
+            out["m"] = _metric_row(eps_recon, x, next_state, s["level"],
+                                   _per_example_norm(step_noise))
+        x.copy_(next_state)
+        return out
+    return step
+
+
+def ddpm_tables(constants: schedules.DDPMConstants, collect_steps=0,
+                spare=0) -> dict:
+    """DDPM's per-step table in loop order (step i is t = T-1-i), float32:
+    ``cond`` √ᾱ_t (the model's input), the infill's ``y_a`` √ᾱ_t and ``y_b``
+    √(1-ᾱ_t) (1 and 0 at t = 0: the samples themselves), ``noise_scale``
+    exp(½ log var_t) (0 at t = 0), ``recip`` √(1/ᾱ_t), ``m1`` √(1/ᾱ_t - 1),
+    the posterior's ``mu1`` and ``mu2``, the metrics' ``level`` ᾱ_t and the
+    collection ``slot`` (``spare`` where none)."""
+    c = {k: getattr(constants, k).numpy() for k in (
+        "alphas_prod", "sqrt_alphas_prod", "sqrt_recip_alphas_prod",
+        "sqrt_alphas_prod_m1", "posterior_mu1", "posterior_mu2",
+        "posterior_log_var")}
+    T = constants.num_steps
+    one = f32(1.0)
+    rows = {n: [] for n in ("y_a", "y_b", "noise_scale")}
+    for t in range(T - 1, -1, -1):
+        rows["y_a"].append(c["sqrt_alphas_prod"][t] if t > 0 else one)
+        rows["y_b"].append(np.sqrt(one - c["alphas_prod"][t]) if t > 0
+                           else f32(0))
+        rows["noise_scale"].append(
+            np.exp(f32(0.5) * c["posterior_log_var"][t]) if t > 0
+            else f32(0))
+    rev = slice(None, None, -1)
+    tables = {n: np.asarray(v, f32) for n, v in rows.items()}
+    tables.update(cond=c["sqrt_alphas_prod"][rev],
+                  recip=c["sqrt_recip_alphas_prod"][rev],
+                  m1=c["sqrt_alphas_prod_m1"][rev],
+                  mu1=c["posterior_mu1"][rev], mu2=c["posterior_mu2"][rev],
+                  level=c["alphas_prod"][rev])
+    if collect_steps > 0:
+        tables["slot"] = _slot_table(T, collect_steps, spare)
+    return tables
+
+
 def diffusion_dynamics(generator: Optional[torch.Generator],
                        model_fn: ModelFn,
                        betas,
@@ -275,7 +425,8 @@ def diffusion_dynamics(generator: Optional[torch.Generator],
     sqrt(abar_t) (shape (B, 1, ..., 1)), reconstruct x0 clipped to [-1, 1],
     form the posterior mean mu1*x0 + mu2*x_t, add clipped-variance noise
     (zero at t=0), and overwrite masked elements with the forward-diffused
-    infill content at the matching noise level.
+    infill content at the matching noise level. One step body for every t
+    (``ddpm_tables``): one graph on the card.
 
     ``noise``: optional pre-drawn ``(infill_noise, step_noise)``, each
     (T, *init.shape), indexed by loop step (step i is t = T-1-i); then
@@ -286,59 +437,16 @@ def diffusion_dynamics(generator: Optional[torch.Generator],
         schedules.ddpm_constants(betas)
     T = c.num_steps
     collect_steps = min(collect_steps, T)
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    infill = infill_masks is not None
-    start = init * keep + infill_samples * infill_masks if infill else init
-
-    collection = _init_collection(collect_steps, start)
-    slots = _collection_slots(T, collect_steps)
-    consts = {k: getattr(c, k).numpy() for k in (
-        "alphas_prod", "sqrt_alphas_prod", "sqrt_recip_alphas_prod",
-        "sqrt_alphas_prod_m1", "posterior_mu1", "posterior_mu2",
-        "posterior_log_var")}
-    one = f32(1.0)
-    levels = _levels(c.alphas_prod, init, collect_metrics)
-    draw = _drawer(generator, init, noise)
-    metrics = []
-
-    state = start
-    for i, t in enumerate(range(T - 1, -1, -1)):
-        sqrt_ap = float(consts["sqrt_alphas_prod"][t])
-        if infill:
-            infill_noise = draw(0, i)
-            if t > 0:
-                y = sqrt_ap * infill_samples + float(np.sqrt(
-                    one - consts["alphas_prod"][t])) * infill_noise
-            else:
-                y = infill_samples
-        step_noise = draw(1, i)
-        if t > 0:
-            step_noise = step_noise * float(np.exp(
-                f32(0.5) * consts["posterior_log_var"][t]))
-        else:
-            step_noise = torch.zeros_like(step_noise)
-
-        eps_recon = model_fn(state, _cond(state, sqrt_ap))
-        state_recon = (float(consts["sqrt_recip_alphas_prod"][t]) * state -
-                       float(consts["sqrt_alphas_prod_m1"][t]) * eps_recon)
-        state_recon = state_recon.clamp(-1.0, 1.0)
-        posterior_mu = (float(consts["posterior_mu1"][t]) * state_recon +
-                        float(consts["posterior_mu2"][t]) * state)
-        next_state = posterior_mu + step_noise
-        if infill:
-            next_state = next_state * keep + y * infill_masks
-
-        slot = slots.get(T - t) if collection is not None else None
-        if slot is not None:
-            collection[slot] = next_state
-        if collect_metrics:
-            metrics.append(_metric_row(eps_recon, state, next_state,
-                                       levels[t],
-                                       _per_example_norm(step_noise)))
-        state = next_state
-
-    return SamplerOutput(state, collection, _stack_metrics(metrics))
+    rows = _collect_rows(collect_steps)
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    start = _start(init, infill)
+    flags = (infill[1] is not None, rows > 0, collect_metrics)
+    bufs, metric_rows = _run(
+        "DDPM", model_fn, flags,
+        lambda gen: _ddpm_step(model_fn, gen, *flags), generator, start,
+        ddpm_tables(c, collect_steps, rows - 1),
+        _statics(start, infill, rows, False), noise, [None] * T)
+    return SamplerOutput(*_outputs(bufs, metric_rows, start, rows))
 
 
 def ddim_taus(num_timesteps: int, num_steps: int) -> np.ndarray:
@@ -346,6 +454,66 @@ def ddim_taus(num_timesteps: int, num_steps: int) -> np.ndarray:
     ``jnp.linspace(0, T - 1, num_steps).round()`` in JAX's float32."""
     return np.round(schedules.linspace_f32(0, num_timesteps - 1,
                                            num_steps)).astype(np.int64)
+
+
+def _ddim_step(model_fn, generator, infill, collect, metrics):
+    def step(s):
+        x = s["x"]
+        draw_noise, draw_infill = s["variant"]
+        eps = model_fn(x, _cond(x, s["cond"]))
+        x0 = ((x - s["sqrt_1ma"] * eps) / s["sqrt_a"]).clamp(-1.0, 1.0)
+        next_state = s["sqrt_a_prev"] * x0 + s["dir_coeff"] * eps
+        noise_norm = s.get("zero_norm")
+        if draw_noise:
+            step_noise = s["sigma"] * _draw(s, generator, 0, x)
+            next_state = next_state + step_noise
+            if metrics:
+                noise_norm = _per_example_norm(step_noise)
+        if infill:
+            y = s["sqrt_a_prev"] * s["samples"] + s["y_b"] * _draw(
+                s, generator, 1, x) if draw_infill else s["samples"]
+            next_state = next_state * s["keep"] + y * s["masks"]
+        if collect:
+            _collect(s, next_state)
+        out = {}
+        if metrics:
+            out["m"] = _metric_row(eps, x, next_state, s["level"],
+                                   noise_norm)
+        x.copy_(next_state)
+        return out
+    return step
+
+
+def ddim_tables(constants: schedules.DDPMConstants, num_steps: int,
+                eta: float, collect_steps=0, spare=0):
+    """DDIM's per-step table in loop order (step j is i = num_steps-1-j),
+    float32, and each step's variant (step noise drawn, infill noise
+    drawn): ``cond`` and ``sqrt_a`` √ᾱ_i, ``sqrt_1ma`` √(1-ᾱ_i),
+    ``sqrt_a_prev`` √ᾱ_{i-1}, ``dir_coeff``, ``sigma`` (eta's noise scale),
+    ``y_b`` √(1-ᾱ_{i-1}), the metrics' ``level`` ᾱ_i and the collection
+    ``slot``."""
+    abar = constants.alphas_prod.numpy()[ddim_taus(constants.num_steps,
+                                                   num_steps)]
+    abar_prev = np.concatenate([np.ones(1, f32), abar[:-1]])
+    one = f32(1.0)
+    names = ("cond", "sqrt_1ma", "sqrt_a", "sqrt_a_prev", "dir_coeff",
+             "sigma", "y_b", "level")
+    rows, variants = {n: [] for n in names}, []
+    for i in range(num_steps - 1, -1, -1):
+        a, a_prev = abar[i], abar_prev[i]
+        sqrt_a = np.sqrt(a)
+        sigma = (f32(eta) * np.sqrt((one - a_prev) / (one - a)) *
+                 np.sqrt(one - a / a_prev))
+        values = (sqrt_a, np.sqrt(one - a), sqrt_a, np.sqrt(a_prev),
+                  np.sqrt(np.maximum(one - a_prev - sigma ** 2, f32(0))),
+                  sigma, np.sqrt(one - a_prev), a)
+        for n, v in zip(names, values):
+            rows[n].append(v)
+        variants.append((bool(i > 0 and sigma != 0), i > 0))
+    tables = {n: np.asarray(v, f32) for n, v in rows.items()}
+    if collect_steps > 0:
+        tables["slot"] = _slot_table(num_steps, collect_steps, spare)
+    return tables, variants
 
 
 def ddim_dynamics(generator: Optional[torch.Generator],
@@ -364,6 +532,7 @@ def ddim_dynamics(generator: Optional[torch.Generator],
     """DDIM sampling over a strided timestep subset (Song et al., 2021).
 
     eta=0 gives the deterministic DDIM ODE; eta=1 ancestral-like noise.
+    The last step draws neither noise (a variant of its own).
     ``noise``: optional pre-drawn ``(step_noise, infill_noise)``, each
     (num_steps, *init.shape), indexed by loop step (step j is i =
     num_steps-1-j). The JAX step splits its key into (carry, noise, infill)
@@ -371,56 +540,20 @@ def ddim_dynamics(generator: Optional[torch.Generator],
     """
     c = constants if constants is not None else \
         schedules.ddpm_constants(betas)
-    abar = c.alphas_prod.numpy()[ddim_taus(c.num_steps, num_steps)]
-    abar_prev = np.concatenate([np.ones(1, f32), abar[:-1]])
-    one = f32(1.0)
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    infill = infill_masks is not None
-    start = init * keep + infill_samples * infill_masks if infill else init
     collect_steps = min(collect_steps, num_steps)
-    collection = _init_collection(collect_steps, start)
-    slots = _collection_slots(num_steps, collect_steps)
-    draw = _drawer(generator, init, noise)
-    levels = _levels(abar, init, collect_metrics)
-    zero_norm = None
-    metrics = []
-
-    state = start
-    for j, i in enumerate(range(num_steps - 1, -1, -1)):
-        a, a_prev = abar[i], abar_prev[i]
-        sqrt_a = np.sqrt(a)
-        eps = model_fn(state, _cond(state, sqrt_a))
-        x0 = ((state - float(np.sqrt(one - a)) * eps) / float(sqrt_a)) \
-            .clamp(-1.0, 1.0)
-        sigma = (f32(eta) * np.sqrt((one - a_prev) / (one - a)) *
-                 np.sqrt(one - a / a_prev))
-        dir_coeff = np.sqrt(np.maximum(one - a_prev - sigma ** 2, f32(0)))
-        next_state = float(np.sqrt(a_prev)) * x0 + float(dir_coeff) * eps
-        step_noise = None
-        if i > 0 and sigma != 0:
-            step_noise = float(sigma) * draw(0, j)
-            next_state = next_state + step_noise
-        if infill:
-            if i > 0:
-                y = (float(np.sqrt(a_prev)) * infill_samples +
-                     float(np.sqrt(one - a_prev)) * draw(1, j))
-            else:
-                y = infill_samples
-            next_state = next_state * keep + y * infill_masks
-
-        slot = slots.get(num_steps - i) if collection is not None else None
-        if slot is not None:
-            collection[slot] = next_state
-        if collect_metrics:
-            if step_noise is None and zero_norm is None:
-                zero_norm = _per_example_norm(torch.zeros_like(state))
-            metrics.append(_metric_row(
-                eps, state, next_state, levels[i], zero_norm
-                if step_noise is None else _per_example_norm(step_noise)))
-        state = next_state
-
-    return SamplerOutput(state, collection, _stack_metrics(metrics))
+    rows = _collect_rows(collect_steps)
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    start = _start(init, infill)
+    tables, variants = ddim_tables(c, num_steps, eta, collect_steps, rows - 1)
+    if infill[1] is None:
+        variants = [(v[0], False) for v in variants]
+    flags = (infill[1] is not None, rows > 0, collect_metrics)
+    bufs, metric_rows = _run(
+        "DDIM", model_fn, flags,
+        lambda gen: _ddim_step(model_fn, gen, *flags), generator, start,
+        tables, _statics(start, infill, rows, collect_metrics), noise,
+        variants)
+    return SamplerOutput(*_outputs(bufs, metric_rows, start, rows))
 
 
 def dpmpp_taus(alphas_prod, num_steps: int,
@@ -440,6 +573,70 @@ def dpmpp_taus(alphas_prod, num_steps: int,
     return np.minimum(taus, T - 1)
 
 
+def dpmpp_tables(constants: schedules.DDPMConstants, num_steps: int,
+                 lam_max: Optional[float] = 2.5, collect_steps=0, spare=0):
+    """DPM++'s per-step table in loop order (step j is k = num_steps-1-j),
+    float32: ``cond`` and ``alpha`` α_k, ``sigma`` σ_k, ``alpha_next`` and
+    ``sigma_next``, the second-order correction's ``corr`` 1/(2r) and
+    ``corr_coeff`` α_next (e^-h - 1), both 0 on the Euler steps (the first,
+    the last and h = 0), the metrics' ``level`` ᾱ_k and the collection
+    ``slot``."""
+    abar = constants.alphas_prod.numpy()[dpmpp_taus(
+        constants.alphas_prod, num_steps, lam_max)]
+    one = f32(1.0)
+    abar_next = np.minimum(np.concatenate([np.ones(1, f32), abar[:-1]]),
+                           f32(1.0 - 1e-6))
+    alpha_cur, sigma_cur = np.sqrt(abar), np.sqrt(one - abar)
+    alpha_next, sigma_next = np.sqrt(abar_next), np.sqrt(one - abar_next)
+    h = np.log(alpha_next / sigma_next) - np.log(alpha_cur / sigma_cur)
+    # Step k's predecessor is k+1 (the loop runs k descending): r[k] =
+    # h[k+1] / h[k]; duplicate taus give h == 0, where r is replaced by 1
+    # and the step is Euler.
+    h_zero = h == 0
+    h_prev = np.concatenate([h[1:], np.ones(1, f32)])
+    r = np.where(h_zero | (h_prev == 0), one,
+                 h_prev / np.where(h_zero, one, h))
+    corr, corr_coeff = [], []
+    for k in range(num_steps - 1, -1, -1):
+        euler = k == num_steps - 1 or k == 0 or h_zero[k]
+        corr.append(f32(0) if euler else one / (f32(2.0) * r[k]))
+        corr_coeff.append(f32(0) if euler else
+                          alpha_next[k] * (np.exp(-h[k]) - one))
+    rev = slice(None, None, -1)
+    tables = {"cond": alpha_cur[rev], "alpha": alpha_cur[rev],
+              "sigma": sigma_cur[rev], "alpha_next": alpha_next[rev],
+              "sigma_next": sigma_next[rev], "corr": np.asarray(corr, f32),
+              "corr_coeff": np.asarray(corr_coeff, f32),
+              "level": abar[rev]}
+    if collect_steps > 0:
+        tables["slot"] = _slot_table(num_steps, collect_steps, spare)
+    return tables
+
+
+def _dpmpp_step(model_fn, generator, infill, collect, metrics):
+    def step(s):
+        x, prev_x0 = s["x"], s["prev_x0"]
+        eps = model_fn(x, _cond(x, s["cond"]))
+        x0 = ((x - s["sigma"] * eps) / s["alpha"]).clamp(-1.0, 1.0)
+        next_state = s["alpha_next"] * x0 + s["sigma_next"] * eps
+        next_state = next_state - s["corr_coeff"] * (
+            s["corr"] * (x0 - prev_x0))
+        if infill:
+            y = s["alpha_next"] * s["samples"] + s["sigma_next"] * _draw(
+                s, generator, 0, x) if s["variant"] else s["samples"]
+            next_state = next_state * s["keep"] + y * s["masks"]
+        if collect:
+            _collect(s, next_state)
+        out = {}
+        if metrics:
+            out["m"] = _metric_row(eps, x, next_state, s["level"],
+                                   s["zero"])
+        x.copy_(next_state)
+        prev_x0.copy_(x0)
+        return out
+    return step
+
+
 def dpmpp_dynamics(generator: Optional[torch.Generator],
                    model_fn: ModelFn,
                    betas,
@@ -455,75 +652,56 @@ def dpmpp_dynamics(generator: Optional[torch.Generator],
     """DPM-Solver++(2M): 2nd-order multistep ODE sampler (Lu et al., 2022).
 
     Steps on the ``dpmpp_taus`` grid, Euler on the first and last steps and
-    where duplicate taus give h == 0 (their r is replaced by 1), the
-    update written in the (clipped x0, raw eps) basis. Deterministic but
-    for the infill forward-diffusion; the noise-norm metric row is zero.
-    ``noise``: optional pre-drawn infill noise (num_steps, *init.shape),
-    indexed by loop step (step j is k = num_steps-1-j); the JAX step splits
-    its key into (carry, infill).
+    where duplicate taus give h == 0 (their r is replaced by 1; the table's
+    correction is 0 there), the update written in the (clipped x0, raw eps)
+    basis. Deterministic but for the infill forward-diffusion; the
+    noise-norm metric row is zero. ``noise``: optional pre-drawn infill
+    noise (num_steps, *init.shape), indexed by loop step (step j is k =
+    num_steps-1-j); the JAX step splits its key into (carry, infill).
     """
     c = constants if constants is not None else \
         schedules.ddpm_constants(betas)
-    abar = c.alphas_prod.numpy()[dpmpp_taus(c.alphas_prod, num_steps,
-                                            lam_max)]
-    one = f32(1.0)
-    abar_next = np.minimum(np.concatenate([np.ones(1, f32), abar[:-1]]),
-                           f32(1.0 - 1e-6))
-    alpha_cur, sigma_cur = np.sqrt(abar), np.sqrt(one - abar)
-    alpha_next, sigma_next = np.sqrt(abar_next), np.sqrt(one - abar_next)
-    h = np.log(alpha_next / sigma_next) - np.log(alpha_cur / sigma_cur)
-    # Step k's predecessor is k+1 (the loop runs k descending): r[k] =
-    # h[k+1] / h[k]; duplicate taus give h == 0, where r is replaced by 1
-    # and the step is Euler.
-    h_zero = h == 0
-    h_prev = np.concatenate([h[1:], np.ones(1, f32)])
-    r = np.where(h_zero | (h_prev == 0), one,
-                 h_prev / np.where(h_zero, one, h))
-
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    infill = infill_masks is not None
-    start = init * keep + infill_samples * infill_masks if infill else init
     collect_steps = min(collect_steps, num_steps)
-    collection = _init_collection(collect_steps, start)
-    slots = _collection_slots(num_steps, collect_steps)
-    draw = _drawer(generator, init, None if noise is None else (noise,))
-    levels = _levels(abar, init, collect_metrics)
-    zero = torch.zeros((), device=init.device)
-    metrics = []
-
-    state, prev_x0 = start, None
-    for j, k in enumerate(range(num_steps - 1, -1, -1)):
-        eps = model_fn(state, _cond(state, alpha_cur[k]))
-        x0 = ((state - float(sigma_cur[k]) * eps) / float(alpha_cur[k])) \
-            .clamp(-1.0, 1.0)
-        next_state = float(alpha_next[k]) * x0 + float(sigma_next[k]) * eps
-        if not (k == num_steps - 1 or k == 0 or h_zero[k]):
-            corr = float(one / (f32(2.0) * r[k])) * (x0 - prev_x0)
-            next_state = next_state - float(
-                alpha_next[k] * (np.exp(-h[k]) - one)) * corr
-        if infill:
-            if k > 0:
-                y = (float(alpha_next[k]) * infill_samples +
-                     float(sigma_next[k]) * draw(0, j))
-            else:
-                y = infill_samples
-            next_state = next_state * keep + y * infill_masks
-        slot = slots.get(num_steps - k) if collection is not None else None
-        if slot is not None:
-            collection[slot] = next_state
-        if collect_metrics:
-            metrics.append(_metric_row(eps, state, next_state, levels[k],
-                                       zero))
-        state, prev_x0 = next_state, x0
-
-    return SamplerOutput(state, collection, _stack_metrics(metrics))
+    rows = _collect_rows(collect_steps)
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    start = _start(init, infill)
+    extra = {"prev_x0": graphs.zeros(start.shape, start.dtype,
+                                     start.device)}
+    if collect_metrics:
+        extra["zero"] = torch.zeros((), device=init.device)
+    flags = (infill[1] is not None, rows > 0, collect_metrics)
+    variants = [infill[1] is not None and k > 0
+                for k in range(num_steps - 1, -1, -1)]
+    bufs, metric_rows = _run(
+        "DPM++", model_fn, flags,
+        lambda gen: _dpmpp_step(model_fn, gen, *flags), generator, start,
+        dpmpp_tables(c, num_steps, lam_max, collect_steps, rows - 1),
+        _statics(start, infill, rows, False, extra.items()),
+        None if noise is None else (noise,), variants)
+    return SamplerOutput(*_outputs(bufs, metric_rows, start, rows))
 
 
 def _grid_f32(grid) -> np.ndarray:
     if torch.is_tensor(grid):
         grid = grid.detach().cpu().numpy()
     return np.asarray(grid, f32)
+
+
+def _distilled_step(model_fn, generator, infill, clip_x0):
+    def step(s):
+        x = s["x"]
+        eps = model_fn(x, _cond(x, s["cond"]))
+        x0 = (x - s["sigma"] * eps) / s["alpha"]
+        if clip_x0:
+            x0 = x0.clamp(-1.0, 1.0)
+        next_state = s["alpha_next"] * x0 + s["sigma_next"] * eps
+        if infill:
+            y = s["alpha_next"] * s["samples"] + s["sigma_next"] * _draw(
+                s, generator, 0, x) if s["variant"] else s["samples"]
+            next_state = next_state * s["keep"] + y * s["masks"]
+        x.copy_(next_state)
+        return {}
+    return step
 
 
 def distilled_ddim_dynamics(generator: Optional[torch.Generator],
@@ -546,25 +724,38 @@ def distilled_ddim_dynamics(generator: Optional[torch.Generator],
     grid = _grid_f32(grid)
     num_steps = grid.shape[0] - 1
     alphas, sigmas = np.sqrt(grid), np.sqrt(f32(1.0) - grid)
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    draw = _drawer(generator, init, None if noise is None else (noise,))
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    start = _start(init, infill)
+    tables = {"cond": alphas[:-1], "alpha": alphas[:-1],
+              "sigma": sigmas[:-1], "alpha_next": alphas[1:],
+              "sigma_next": sigmas[1:]}
+    flags = (infill[1] is not None, bool(clip_x0))
+    variants = [infill[1] is not None and i < num_steps - 1
+                for i in range(num_steps)]
+    bufs, _ = _run(
+        "distilled DDIM", model_fn, flags,
+        lambda gen: _distilled_step(model_fn, gen, *flags), generator,
+        start, tables, _statics(start, infill, 0, False),
+        None if noise is None else (noise,), variants)
+    return SamplerOutput(bufs["x"].clone(), None, None)
 
-    state = init if infill_masks is None else \
-        init * keep + infill_samples * infill_masks
-    for i in range(num_steps):
-        eps = model_fn(state, _cond(state, alphas[i]))
-        x0 = (state - float(sigmas[i]) * eps) / float(alphas[i])
+
+def _consistency_step(model_fn, generator, infill, clip_x0):
+    def step(s):
+        x = s["x"]
+        z = x if s["variant"] else \
+            s["alpha"] * x + s["sigma"] * _draw(s, generator, 0, x)
+        if infill:
+            y = s["alpha"] * s["samples"] + s["sigma"] * _draw(s, generator,
+                                                               1, x)
+            z = z * s["keep"] + y * s["masks"]
+        eps = model_fn(z, _cond(z, s["cond"]))
+        next_state = (z - s["sigma"] * eps) / s["alpha"]
         if clip_x0:
-            x0 = x0.clamp(-1.0, 1.0)
-        next_state = float(alphas[i + 1]) * x0 + float(sigmas[i + 1]) * eps
-        if infill_masks is not None:
-            y = (float(alphas[i + 1]) * infill_samples +
-                 float(sigmas[i + 1]) * draw(0, i)) \
-                if i < num_steps - 1 else infill_samples
-            next_state = next_state * keep + y * infill_masks
-        state = next_state
-    return SamplerOutput(state, None, None)
+            next_state = next_state.clamp(-1.0, 1.0)
+        x.copy_(next_state)
+        return {}
+    return step
 
 
 def consistency_dynamics(generator: Optional[torch.Generator],
@@ -582,10 +773,11 @@ def consistency_dynamics(generator: Optional[torch.Generator],
 
     ``grid`` is the ``(N+1,)`` segment-boundary array of the bundle. Step j
     evaluates the consistency function (the clipped x0) at the level
-    ``grid[j * N // k]``, re-noising the previous step's x0 to it for j > 0.
-    ``noise``: optional pre-drawn ``(step_noise, infill_noise)``, each
-    (num_steps, *init.shape); the JAX step splits its key into (carry,
-    noise, infill) and draws the re-noising noise, then the infill noise.
+    ``grid[j * N // k]``, re-noising the previous step's x0 to it for j > 0
+    (step 0 is a variant of its own). ``noise``: optional pre-drawn
+    ``(step_noise, infill_noise)``, each (num_steps, *init.shape); the JAX
+    step splits its key into (carry, noise, infill) and draws the
+    re-noising noise, then the infill noise.
     """
     grid = _grid_f32(grid)
     num_seg = grid.shape[0] - 1
@@ -594,24 +786,17 @@ def consistency_dynamics(generator: Optional[torch.Generator],
                          f"for a {num_seg}-segment consistency grid")
     levels = grid[np.arange(num_steps) * num_seg // num_steps]
     alphas, sigmas = np.sqrt(levels), np.sqrt(f32(1.0) - levels)
-    infill_samples, infill_masks, keep = _resolve_infill(
-        init, infill_samples, infill_masks)
-    draw = _drawer(generator, init, noise)
-
-    state = init
-    for j in range(num_steps):
-        z = state if j == 0 else \
-            float(alphas[j]) * state + float(sigmas[j]) * draw(0, j)
-        if infill_masks is not None:
-            y = (float(alphas[j]) * infill_samples +
-                 float(sigmas[j]) * draw(1, j))
-            z = z * keep + y * infill_masks
-        eps = model_fn(z, _cond(z, alphas[j]))
-        state = (z - float(sigmas[j]) * eps) / float(alphas[j])
-        if clip_x0:
-            state = state.clamp(-1.0, 1.0)
-    if infill_masks is not None:
-        state = state * keep + infill_samples * infill_masks
+    infill = _resolve_infill(init, infill_samples, infill_masks)
+    flags = (infill[1] is not None, bool(clip_x0))
+    bufs, _ = _run(
+        "consistency", model_fn, flags,
+        lambda gen: _consistency_step(model_fn, gen, *flags), generator,
+        init, {"cond": alphas, "alpha": alphas, "sigma": sigmas},
+        _statics(init, infill, 0, False), noise,
+        [j == 0 for j in range(num_steps)])
+    state = bufs["x"].clone()
+    if infill[1] is not None:
+        state = state * infill[2] + infill[0] * infill[1]
     return SamplerOutput(state, None, None)
 
 

@@ -1,8 +1,8 @@
 """Noise schedules and DDPM constants (port of ``smd_tpu/diffusion/schedules.py``).
 
 Everything is computed once on the host with numpy in float32 and returned as
-float32 tensors on the CPU; the sampler reads the per-step constants as
-Python floats, so no step gathers from a device table.
+float32 tensors on the CPU; the samplers stage the per-step constants as one
+float32 table a call, which a step reads through a device index.
 """
 from __future__ import annotations
 

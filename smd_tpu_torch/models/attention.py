@@ -14,7 +14,7 @@ state kept in the module.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
@@ -30,15 +30,25 @@ class KVCache(NamedTuple):
 
     ``keys[l]`` and ``values[l]`` are layer l's (B, L, H, Dh) buffers, L the
     model's ``max_decode_length``, in the dtype of the layer's key and value
-    projections; ``index`` is the next position to decode. A decode step
-    writes position ``index`` of the buffers in place and returns a cache
-    with ``index + 1`` that shares them: positions past a cache's index are
-    masked out, so an earlier cache stays valid for decoding its position
-    again.
+    projections; ``index`` is the next position to decode: a 0-d or
+    one-element long tensor on the buffers' device (``init_cache`` makes
+    one), which a step captured in a CUDA graph reads at each replay, or an
+    int. A decode step writes position ``index`` of the buffers in place and
+    returns a cache with ``index + 1`` that shares them: positions past a
+    cache's index are masked out, so an earlier cache stays valid for
+    decoding its position again.
     """
     keys: Tuple[torch.Tensor, ...]
     values: Tuple[torch.Tensor, ...]
-    index: int
+    index: Union[torch.Tensor, int]
+
+
+def position(index, device) -> torch.Tensor:
+    """A cache index as the (1,) long device tensor that ``index_copy_``
+    and ``index_select`` take."""
+    if torch.is_tensor(index):
+        return index.reshape(1)
+    return torch.full((1,), index, dtype=torch.long, device=device)
 
 
 def _on_accelerator(x: torch.Tensor) -> bool:
@@ -111,21 +121,23 @@ class MultiHeadSelfAttention(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(out)
 
-    def decode(self, x, keys, values, index: int):
-        """One position ``x`` (B, 1, E) at ``index``: its key and value
-        written into the (B, L, H, Dh) buffers ``keys`` and ``values`` in
-        place, then attention over positions ``0..index`` of them (the
-        einsum; the flash kernel takes no single query)."""
+    def decode(self, x, keys, values, index):
+        """One position ``x`` (B, 1, E) at ``index`` (a cache index, see
+        ``KVCache``): its key and value written into the (B, L, H, Dh)
+        buffers ``keys`` and ``values`` in place, then attention over
+        positions ``0..index`` of them (the einsum; the flash kernel takes
+        no single query). Nothing is read back to the host."""
         if x.shape[1] != 1:
             raise ValueError("decode consumes one position at a time, got "
                              f"{x.shape[1]}")
         dh = self.features // self.num_heads
         q, k, v = self.qkv(x).unbind(dim=-3)  # each (B, 1, H, Dh)
-        keys[:, index] = k[:, 0]
-        values[:, index] = v[:, 0]
+        at = position(index, x.device)
+        keys.index_copy_(1, at, k.to(keys.dtype))
+        values.index_copy_(1, at, v.to(values.dtype))
         q = q / torch.tensor(dh ** 0.5, dtype=q.dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, keys)
-        mask = torch.arange(keys.shape[1], device=x.device) <= index
+        mask = torch.arange(keys.shape[1], device=x.device) <= at
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         weights = torch.softmax(scores, dim=-1)
         return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, values))

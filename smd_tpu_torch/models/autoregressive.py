@@ -80,9 +80,10 @@ class TransformerMDN(nn.Module):
         return self.TransformerEncoder_0.init_cache(batch)
 
     def decode(self, token, cache: KVCache):
-        """One position ``token`` (B, 1, C) at ``cache.index``: returns
-        ((pi, mu, log_sigma) of that position, each (B, 1, ...)), the cache
-        advanced by one)."""
+        """One position ``token`` (B, 1, C) at ``cache.index`` (a device
+        tensor, never read back, or an int): returns ((pi, mu, log_sigma) of
+        that position, each (B, 1, ...)), the cache advanced by one). The
+        cached decode captures this call in a CUDA graph on the card."""
         x, cache = self.TransformerEncoder_0.decode(token, cache)
         return self._head(x), cache
 

@@ -31,7 +31,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from smd_tpu_torch.models.attention import KVCache, MultiHeadSelfAttention
+from smd_tpu_torch.models.attention import (KVCache, MultiHeadSelfAttention,
+                                            position)
 from smd_tpu_torch.models.blocks import (DenseFiLM, DenseResBlock,
                                          FusedDenseResBlock,
                                          QuantDenseResBlock, _swish,
@@ -173,39 +174,55 @@ class TransformerEncoder(nn.Module):
             raise NotImplementedError(
                 "incremental decoding uses the standard layer layout")
 
-    def init_cache(self, batch: int) -> KVCache:
-        """An empty cache on the params' device: zero keys and values of
-        (batch, L, H, Dh) per layer, in the dtype the key and value
-        projections compute in (the promoted type of the layer's LN output
-        and the projection's params, as Flax gives ``k.dtype``), and index
-        0."""
+    def cache_spec(self, batch: int):
+        """Each layer's key (and value) buffer as (shape, dtype, device):
+        (batch, L, H, Dh) in the dtype the key and value projections compute
+        in (the promoted type of the layer's LN output and the projection's
+        params, as Flax gives ``k.dtype``), on the params' device."""
         self._standard_layout_only()
         dh = self.embed_channels // self.num_heads
         shape = (batch, self.max_decode_length, self.num_heads, dh)
-        keys, values = [], []
+        spec = []
         for name in self.layer_names:
             qkv = getattr(self, name).MultiHeadSelfAttention_0.qkv
             dtype = torch.promote_types(
                 torch.promote_types(self.dtype, qkv.kernel.dtype),
                 qkv.bias.dtype)
+            spec.append((shape, dtype, qkv.kernel.device))
+        return spec
+
+    def init_cache(self, batch: int) -> KVCache:
+        """An empty cache (``cache_spec``): zero keys and values per layer,
+        and index 0 as a 0-d long tensor on the params' device."""
+        spec = self.cache_spec(batch)
+        keys, values = [], []
+        for shape, dtype, device in spec:
             for buffers in (keys, values):
                 buffers.append(torch.zeros(shape, dtype=dtype,
-                                           device=qkv.kernel.device))
-        return KVCache(tuple(keys), tuple(values), 0)
+                                           device=device))
+        return KVCache(tuple(keys), tuple(values),
+                       torch.zeros((), dtype=torch.long,
+                                   device=spec[0][2] if spec else None))
 
     def decode(self, x, cache: KVCache):
         """One position ``x`` (B, 1, C) at ``cache.index``, its positional
-        row sliced from the ``max_decode_length`` table as the JAX layer
-        slices it; returns (output (B, 1, E), the cache advanced by one)."""
+        row taken from the ``max_decode_length`` table as the JAX layer
+        slices it; returns (output (B, 1, E), the cache advanced by one).
+        An int index is checked against the capacity here; a tensor index is
+        never read back (a decode captured in a CUDA graph reads it at each
+        replay), so its caller checks the step count before decoding
+        (``mdn_decode.ar_decode_cached`` does)."""
         self._standard_layout_only()
         index = cache.index
-        if not 0 <= index < self.max_decode_length:
+        if not torch.is_tensor(index) and \
+                not 0 <= index < self.max_decode_length:
             raise ValueError(f"position {index} is past the cache's "
                              f"max_decode_length={self.max_decode_length}")
         x = x.to(self.dtype)
         table = positional_encoding(self.max_decode_length,
                                     self.embed_channels, device=x.device)
-        x = self.Dense_0(x) + table[index:index + 1].to(self.dtype)[None]
+        row = table.index_select(0, position(index, x.device))
+        x = self.Dense_0(x) + row.to(self.dtype)[None]
         for name, keys, values in zip(self.layer_names, cache.keys,
                                       cache.values):
             x = getattr(self, name)(x, kv=(keys, values, index))

@@ -4,7 +4,11 @@
 ``sample`` serves the NCSN family's annealed and consistent Langevin
 samplers (``ald``, the default, and ``cas``) and the DDPM, DDIM,
 DPM-Solver++, distilled and consistency samplers. Every driver takes a
-``model_fn(x, cond)`` closure over a model, as the JAX ones do.
+``model_fn(x, cond)`` closure over a model, as the JAX ones do. On the card
+each chain is one step captured in a CUDA graph and replayed once a step
+(``diffusion/samplers.py``, ``utils/graphs.py``), kept for the next call
+with the same ``model_fn``, sampler, sizes and options: ``interpolate``'s
+chains replay one graph. ``utils.graphs.release()`` frees the kept graphs.
 """
 from __future__ import annotations
 

@@ -7,8 +7,13 @@ i < S-1 the sample at position i is written into slot i+1; the last step
 replaces the whole buffer with the per-position samples, which removes the
 start token. ``ar_decode_cached`` is clean ancestral sampling over a
 ``KVCache``, one position a model call. The JAX package runs each decode as
-one ``lax.scan``; here each step is an eager call on the model's device,
-with the draws from a ``torch.Generator``.
+one ``lax.scan``; here each is one step body that reads its position through
+the chain's device index and writes the token buffer (or the KV cache and
+the output) in place, captured in a CUDA graph on the card and replayed
+once a position (``utils/graphs.py``), run eagerly on the CPU; the draws
+come from a ``torch.Generator``. ``ar_decode``'s final step, which replaces
+the whole buffer, is a call of its own. A second call with the same model
+(function), sizes and options replays the first call's graph.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from typing import Callable, Optional
 import torch
 
 from smd_tpu_torch.device import resolve_device
+from smd_tpu_torch.models.attention import KVCache
+from smd_tpu_torch.utils import graphs
 
 __all__ = ["sample_mixture", "ar_decode", "ar_decode_cached"]
 
@@ -51,6 +58,18 @@ def sample_mixture(generator: Optional[torch.Generator], pi, mu, log_sigma,
     return mu_sel + sig_sel * eps
 
 
+def _full_step(model_fn, generator, channels, log_sigma_cap):
+    def step(s):
+        tokens, i = s["tokens"], s["step"]
+        pi, mu, log_sigma = (o.index_select(1, i)[:, 0]
+                             for o in model_fn(tokens))
+        z = sample_mixture(generator, pi, mu, log_sigma, channels,
+                           log_sigma_cap)
+        tokens.index_copy_(1, i + 1, z.unsqueeze(1).to(tokens.dtype))
+        return {}
+    return step
+
+
 @torch.no_grad()
 def ar_decode(generator: Optional[torch.Generator],
               model_fn: Callable,
@@ -64,20 +83,37 @@ def ar_decode(generator: Optional[torch.Generator],
 
     ``model_fn``: ``tokens -> (pi, mu, log_sigma)`` applied WITHOUT the
     teacher-forcing shift (the zero start token is explicit here).
-    ``device`` is ``cuda`` unless the caller passes ``"cpu"``.
+    ``device`` is ``cuda`` unless the caller passes ``"cpu"``. Steps
+    0..S-2 write slot i+1 through the captured step; the last step, which
+    samples every position, is one call after them.
     """
     device = resolve_device(device)
-    tokens = torch.zeros(num_samples, steps, channels, device=device)
-    for i in range(steps):
-        pi, mu, log_sigma = model_fn(tokens)
-        if i < steps - 1:
-            tokens[:, i + 1] = sample_mixture(
-                generator, pi[:, i], mu[:, i], log_sigma[:, i], channels,
-                log_sigma_cap)
-        else:
-            tokens = sample_mixture(generator, pi, mu, log_sigma, channels,
-                                    log_sigma_cap)
-    return tokens
+    tokens = graphs.zeros((num_samples, steps, channels), device=device)
+    if steps > 1:
+        run = graphs.chain(
+            "ar_decode", model_fn, (channels, log_sigma_cap), device,
+            lambda gen: _full_step(model_fn, gen, channels, log_sigma_cap))
+        bufs, _ = run(generator, {}, {}, {"tokens": tokens},
+                      [None] * (steps - 1))
+        tokens = bufs["tokens"].clone()
+    else:
+        tokens = tokens.contiguous()
+    return sample_mixture(generator, *model_fn(tokens), channels,
+                          log_sigma_cap)
+
+
+def _cached_step(model, generator, channels, log_sigma_cap, layers):
+    def step(s):
+        i, token = s["step"], s["token"]
+        cache = KVCache(tuple(s[f"keys{j}"] for j in range(layers)),
+                        tuple(s[f"values{j}"] for j in range(layers)), i)
+        (pi, mu, log_sigma), _ = model.decode(token, cache)
+        z = sample_mixture(generator, pi[:, 0], mu[:, 0], log_sigma[:, 0],
+                           channels, log_sigma_cap)
+        s["out"].index_copy_(1, i, z.unsqueeze(1))
+        token.copy_(z.unsqueeze(1))
+        return {}
+    return step
 
 
 @torch.no_grad()
@@ -91,7 +127,8 @@ def ar_decode_cached(generator: Optional[torch.Generator],
     through ``model`` (a TransformerMDN, standard layout) over the keys and
     values cached so far. Clean ancestral sampling y_t ~ p(.|y_<t), without
     ``ar_decode``'s final-step resample. Runs on the model's device;
-    returns (N, S, D) float32.
+    returns (N, S, D) float32. The cache's index is the chain's device
+    index, so the capacity is checked here, on the step count.
     """
     max_len = model.max_decode_length
     if steps > max_len:
@@ -101,13 +138,18 @@ def ar_decode_cached(generator: Optional[torch.Generator],
             f"max_decode_length>={steps} (decoding past the cache would "
             f"silently attend over truncated history)")
     device = next(model.parameters()).device
-    cache = model.init_cache(num_samples)
-    token = torch.zeros(num_samples, 1, channels, device=device)
-    out = torch.empty(num_samples, steps, channels, device=device)
-    for i in range(steps):
-        (pi, mu, log_sigma), cache = model.decode(token, cache)
-        z = sample_mixture(generator, pi[:, 0], mu[:, 0], log_sigma[:, 0],
-                           channels, log_sigma_cap)
-        out[:, i] = z
-        token = z[:, None]
-    return out
+    statics = {"token": graphs.zeros((num_samples, 1, channels),
+                                     device=device),
+               "out": graphs.zeros((num_samples, steps, channels),
+                                   device=device)}
+    spec = model.TransformerEncoder_0.cache_spec(num_samples)
+    for j, (shape, dtype, _) in enumerate(spec):
+        statics[f"keys{j}"] = graphs.zeros(shape, dtype, device)
+        statics[f"values{j}"] = graphs.zeros(shape, dtype, device)
+    layers = len(spec)
+    run = graphs.chain(
+        "ar_decode_cached", model, (channels, log_sigma_cap), device,
+        lambda gen: _cached_step(model, gen, channels, log_sigma_cap,
+                                 layers))
+    bufs, _ = run(generator, {}, {}, statics, [None] * steps)
+    return bufs["out"].clone()

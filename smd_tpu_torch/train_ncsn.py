@@ -64,6 +64,7 @@ def snapshot_sampling_callback(model, sigmas, train_ds, eval_ds, writer,
     from smd_tpu_torch.data import transforms
     from smd_tpu_torch.eval import plots
     from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.utils import graphs
     from smd_tpu_torch.utils import io as io_lib
     from smd_tpu_torch.utils.logging import log_sampling_metrics
 
@@ -92,6 +93,8 @@ def snapshot_sampling_callback(model, sigmas, train_ds, eval_ds, writer,
                 epsilon=FLAGS.ld_epsilon, steps=FLAGS.ld_steps,
                 denoise=FLAGS.denoise, ddim_steps=FLAGS.ddim_steps,
                 ddim_eta=FLAGS.ddim_eta, device=device)
+        # Each snapshot's closure is a chain of its own: free its graph.
+        graphs.release()
         if not write:
             return
         if ld_metrics is not None:

@@ -77,6 +77,7 @@ def reading(**kw):
 
 def chains():
     from smd_tpu_torch.sampling import generate
+    from smd_tpu_torch.utils import graphs
     model, model_fn = cs._flagship()
 
     def run(fn, sampling, kw):
@@ -87,7 +88,10 @@ def chains():
             collect_metrics=False, device="cuda", **cs._sample_kw(kw))
         return out
 
-    with torch.no_grad():
+    # Eager chains: a kept CUDA graph would replay the kernels as captured,
+    # without the fault planted in the wrapper, and the plain chain reads
+    # each call's gap back to the host.
+    with torch.no_grad(), graphs.eager():
         for sampling, kw, _ in cs.FEWSTEP:
             for fault in (None, *FAULTS):
                 call_rels = []
