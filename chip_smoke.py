@@ -161,14 +161,20 @@ Phases, one flushed line each with its seconds:
     width (BiLSTM-2048 encoder, 3 x 2048 LSTM decoder, 512-d latent,
     vocabulary 90) with float32 weights from a seed: 2,048 two-bar chunks
     of 64 seeded pieces, tokenized by the port's converter, encoded and
-    their mu decoded at temperature 1e-3, float32 and at bf16 compute, in
-    chunks/s between two synchronizes; the decode under the profiler at 64
-    and 2,048 chunks (device operations a step, idle share); on 64 chunks
+    their mu decoded at temperature 1e-3, float32 and at bf16 compute, each
+    shape served twice as ``_serve_twice`` serves a sampler (the first
+    call captures the codec chain's graph, the second replays it and
+    captures nothing), in chunks/s between two synchronizes; the decode
+    replayed under the profiler at 64 and 2,048 chunks and the encode at
+    2,048 (host launches, device operations, wall and device-busy ms a
+    step, idle share); on 64 chunks
     the card against the same model on the CPU: mu, sigma and the
     teacher-forced logits within CODEC_RTOL of the norm, and free-running
     tokens with the same Gumbel draws equal up to each row's first near
     tie (CODEC_MARGIN); then 64 latents through ``melody-16-big`` and
-    ``multi-1-big``, weights from a seed. (b) The fused flagship (phase 4's
+    ``multi-1-big``, weights from a seed, each served twice (the
+    conductor's and the decoder's graphs) and replayed under the
+    profiler. (b) The fused flagship (phase 4's
     weights, bf16) samples 64 requests of 32x42 with DPM++-8 (film +4 and
     attention +6 a model call, all on the tensor-core kernel); the latents
     inverse-transformed through a seeded 42-index slice to 512 dims and
@@ -204,14 +210,19 @@ Phases, one flushed line each with its seconds:
 
 25. distributed training. (a) ``dryrun.entry()``, the flagship's forward
     on 8x32x42; ``train_ncsn.main`` on ``configs/ddpm-mel-32seq-512.cfg``
-    at full width for 20 steps under ``RANK=0 WORLD_SIZE=1`` (an NCCL group
-    of one) and without them: every parameter bit-equal; the group
+    at full width for 20 steps, in chunks of 4 (``--scan_chunk``, the
+    step captured) under ``RANK=0 WORLD_SIZE=1`` (an NCCL group of one)
+    and by single steps without them: every parameter bit-equal; the group
     destroyed. (b) The data axis on 2 ranks (processes): the fused
     flagship at bf16, global batch 64 split 32 + 32, 3 steps, each rank's
     film +4 and attention +6 a step, all tensor-core; the replicas equal;
     against one rank on the 64 rows with the same draws, its gradient as
-    two halves (DDP_RTOL) and as one batch (DDP_ONE_BATCH_RTOL); wall
-    ms/step of 1 and 2 ranks and peak memory a rank. (c) The model axis on
+    two halves (DDP_RTOL) and as one batch (DDP_ONE_BATCH_RTOL); the same
+    3 steps as one chunk from the same start (each step's all-reduce
+    eager between its two captured segments: film +20 and attention +30 a
+    rank, 3 replays and 2 warm-up steps) bit-equal to the single steps on
+    each rank, replicas equal by checksum; wall ms/step of 1 and 2 ranks,
+    of the replayed chunk, and peak memory a rank. (c) The model axis on
     2 ranks: the float32 standard flagship split by columns; one forward
     on 64x32x42 against the unsplit model, the first gradient and the
     params after 3 steps (TP_FORWARD_RTOL, TP_RTOL); peak memory a rank.
@@ -259,9 +270,25 @@ Phases, one flushed line each with its seconds:
     beside the card.
     The chains' launches join their records'.
 
+28. captured codec chains: each of the codec's recurrences captured in a
+    CUDA graph and replayed (``codec/musicvae.py``), against the same call
+    with its steps run eagerly (``utils.graphs.eager``) from a generator
+    seeded alike: ``melody-2-big`` float32 and bf16 (seeded weights), the
+    encode and the decode at 64 and 2,048 chunks and a teacher-forced
+    forward of 64 without gradients; the ``melody-16-big`` and
+    ``multi-1-big`` decodes of 64 latents and their conductor embeddings:
+    every output (z, mu, sigma, logits, tokens, embeddings) and the
+    generator's state bit-equal (``torch.equal``) at the capturing call
+    and at a replaying one, the warm-up steps those of the graphs made, no
+    port kernel launched. The planted fault: a decode at temperature 1
+    through the graph kept from one at 1e-3 must equal a fresh eager
+    decode at 1 and differ from the first, and the same call with its
+    staged temperature left at the first call's must be caught.
+
 Before each model call, each serve and each training run every launch
 count is set to 0, and after it every count is read and checked. Each
-phase ends by freeing the sampler chains' kept graphs.
+phase ends by freeing the kept chains' graphs, the samplers' and the
+codec's.
 
 Any failed check exits non-zero. The line before the last is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -2508,8 +2535,12 @@ def codec_fault(model, fault):
     - ``xi+1ulp``: every input product one bf16 ulp towards +inf;
     - ``logits-bf16``: the decoder's logits rounded to bf16 (they are
       float32).
+
+    A kept chain's graph does not see a Python-level patch: with a fault
+    the codec's chains run their steps eagerly (``graphs.eager()``).
     """
     from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.utils import graphs
     undo = []
     if fault == "enc-carry-bf16":
         for cell in (model.encoder.OptimizedLSTMCell_0,
@@ -2534,7 +2565,8 @@ def codec_fault(model, fault):
     elif fault is not None:
         raise ValueError(f"no codec fault {fault!r}")
     try:
-        yield
+        with (graphs.eager() if fault else contextlib.nullcontext()):
+            yield
     finally:
         for f in undo:
             f()
@@ -2648,6 +2680,45 @@ def codec_chunks():
     return torch.from_numpy(np.stack(chunks[:n_chunks]))
 
 
+def _codec_twice(what, run, graphs_made):
+    """``run()`` twice, as a user serves two requests of one shape: the
+    first call captures the codec chains' ``graphs_made`` CUDA graphs (each
+    after ``graphs.WARMUP_STEPS`` eager warm-up steps), the second replays
+    them and captures nothing. Returns (the second call's output, its
+    seconds, the first call's seconds)."""
+    from smd_tpu_torch.utils import graphs
+    before = _warmups()
+    _reset_counts()
+    _, first = _synced(run)
+    made = _warmups() - before
+    if made != graphs.WARMUP_STEPS * graphs_made:
+        fail(f"{what}: the first call ran {made} warm-up steps, expected "
+             f"{graphs.WARMUP_STEPS} for each of {graphs_made} graphs")
+    out, seconds = _synced(run)
+    if _warmups() != before + made:
+        fail(f"{what}: the second call captured again")
+    if _counts() != (0, 0, 0, 0):
+        fail(f"{what}: the codec launched a port kernel: {_counts()}")
+    return out, seconds, first
+
+
+def _codec_served(what, run, steps, graphs_made, smi):
+    """A codec chain's shape served under the profiler: ``run()`` once
+    (capturing where no graph of the shape is kept), then a replaying call
+    profiled: host launches, wall (the profiled span) and device-busy ms a
+    step, and the idle share."""
+    _synced(run)
+    before = _warmups()
+    ops, busy, span, idle, launches = _profile(run, steps)
+    if _warmups() != before:
+        fail(f"{what}: the profiled call captured again")
+    say(f"{what}, replayed under the profiler: {launches:.1f} host "
+        f"launches and {ops:.1f} device operations a step, device busy "
+        f"{busy:.3f} of {span:.3f} wall ms a step, idle share {idle:.3f} "
+        f"({graphs_made} graph(s) a call), on {smi}")
+    return busy, span, idle, launches
+
+
 def phase_codec(tmp, smi):
     """melody-2-big at full width, float32 weights from a seed: 2,048
     tokenized chunks encoded and their mu decoded on the card, float32 and
@@ -2686,29 +2757,34 @@ def phase_codec(tmp, smi):
     rates = {}
     with torch.no_grad():
         for name, model in (("float32", codec.model), ("bf16", bf16)):
-            model.encode(x[:64], gen)       # warm-up
-            (_, mu, sigma), enc_s = _synced(lambda: model.encode(x, gen))
-            model.decode(mu[:64], CODEC_TEMPERATURE, generator=gen)
-            (_, tokens), dec_s = _synced(lambda: model.decode(
-                mu, CODEC_TEMPERATURE, generator=gen))
+            (_, mu, sigma), enc_s, enc_first = _codec_twice(
+                f"the {name} encode of {n_chunks} chunks",
+                lambda: model.encode(x, gen), 1)
+            (_, tokens), dec_s, dec_first = _codec_twice(
+                f"the {name} decode of {n_chunks} chunks",
+                lambda: model.decode(mu, CODEC_TEMPERATURE, generator=gen),
+                1)
             if not (torch.isfinite(mu).all() and torch.isfinite(sigma).all()
                     and (sigma > 0).all()) or tokens.shape != x.shape[:2]:
                 fail(f"the {name} codec's posterior or tokens are malformed")
             rates[name] = (mu, tokens)
-            say(f"codec {name} on {n_chunks} chunks: encode {enc_s:.3f} s = "
-                f"{n_chunks / enc_s:.1f} chunks/s, decode (temperature "
+            say(f"codec {name} on {n_chunks} chunks, each the second call "
+                f"of its shape (the kept chain's graph replayed): encode "
+                f"{enc_s:.3f} s = {n_chunks / enc_s:.1f} chunks/s (first "
+                f"call, capturing, {enc_first:.3f} s), decode (temperature "
                 f"{CODEC_TEMPERATURE}) {dec_s:.3f} s = "
-                f"{n_chunks / dec_s:.1f} chunks/s, on {smi}")
+                f"{n_chunks / dec_s:.1f} chunks/s (first {dec_first:.3f} s), "
+                f"on {smi}")
         mu32 = rates["float32"][0]
         _codec_bf16_check(codec.model, bf16, x, smi)
         for batch in (64, n_chunks):
-            ops, busy, span, idle, _ = _profile(lambda: codec.model.decode(
-                mu32[:batch], CODEC_TEMPERATURE, generator=gen),
-                cfg.max_seq_len)
-            say(f"codec float32 decode of {batch} chunks under the "
-                f"profiler: {ops:.1f} device operations a step, device "
-                f"busy {busy:.3f} of {span:.3f} ms a step, idle share "
-                f"{idle:.3f}, on {smi}")
+            _codec_served(f"codec float32 decode of {batch} chunks",
+                          lambda: codec.model.decode(
+                              mu32[:batch], CODEC_TEMPERATURE,
+                              generator=gen), cfg.max_seq_len, 1, smi)
+        _codec_served(f"codec float32 encode of {n_chunks} chunks",
+                      lambda: codec.model.encode(x, gen), cfg.max_seq_len,
+                      1, smi)
 
         # The card against the CPU, float32, on CODEC_CPU chunks.
         xs = x[:CODEC_CPU]
@@ -2749,20 +2825,25 @@ def phase_codec(tmp, smi):
                                  converter=e.data_converter, device="cuda")
         z = np.random.default_rng(24).standard_normal(
             (CODEC_HIER, e.model.latent_dims)).astype(np.float32)
-        vae.decode_to_tensors(z)          # warm-up at the same batch
-        tokens, seconds = _synced(lambda: vae.decode_to_tensors(z))
+        S = e.model.hier_segments
+        # The conductor's chain and the decoder's: two graphs.
+        tokens, seconds, first = _codec_twice(
+            f"the {entry} decode", lambda: vae.decode_to_tensors(z), 2)
+        _codec_served(f"{entry} decode of {CODEC_HIER} latents",
+                      lambda: vae.decode_to_tensors(z),
+                      e.model.max_seq_len // S, 2, smi)
         seqs = vae.converter.from_tensors(tokens)
         if tokens.shape != (CODEC_HIER, e.model.max_seq_len) or \
                 tokens.min() < 0 or tokens.max() >= e.model.depth or \
                 len(seqs) != CODEC_HIER:
             fail(f"{entry} decoded tokens {tokens.shape} in "
                  f"[{tokens.min()}, {tokens.max()}]")
-        S = e.model.hier_segments
         n_params = sum(p.numel() for p in vae.model.parameters())
         say(f"{entry} decode ({S} segments x {e.model.max_seq_len // S} "
             f"steps, {n_params / 1e6:.1f} M parameters from a seed): "
             f"{CODEC_HIER} latents in "
-            f"{seconds:.3f} s = {CODEC_HIER / seconds:.1f} chunks/s, "
+            f"{seconds:.3f} s = {CODEC_HIER / seconds:.1f} chunks/s (the "
+            f"second call; the first, capturing, {first:.3f} s), "
             f"{sum(len(s.notes) for s in seqs)} notes, on {smi}")
         del vae
         torch.cuda.empty_cache()
@@ -3295,6 +3376,7 @@ def phase_audio(tmp, smi, path):
 # Distributed training (phase 25). 25b-25d run their ranks as processes on
 # this card (gloo over CUDA tensors) or, with a card a rank, on NCCL.
 DDP_STEPS = 20              # 25a: train_ncsn under RANK=0 WORLD_SIZE=1
+DDP_SCAN_CHUNK = 4          # 25a's chunk in the group; 25b's on 2 ranks
 DDP_BATCH, DDP_RANKS, DDP_TRAIN_STEPS = 64, 2, 3
 # 25b: the two ranks against one rank on the 64 rows with the same draws,
 # its gradient taken as the ranks take it (two halves of 32 averaged in
@@ -3416,7 +3498,6 @@ def _ddp_rank(rank, n, backend, port, out_dir):
         out["dp_grads"] = {k: v.float().cpu() for k, v in grads.items()}
         del grads
         state.load_state_dict(fresh)
-        del fresh
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -3432,7 +3513,35 @@ def _ddp_rank(rank, n, backend, port, out_dir):
         mesh_lib.check_replicas_equal(state.params.values())
         out["dp_params"] = {k: v.float().cpu() for k, v in
                             state.state_dict()["params"].items()}
-        del state
+        steps = [t.clone() for t in state.tensors()]
+        # The same steps as one chunk from the same start: each step's
+        # all-reduce between its two captured segments.
+        state.load_state_dict(fresh)
+        del fresh
+        chunk = trainer.make_train_chunk(losses.diffusion_loss, betas, True,
+                                         mesh)
+        stack = rows.expand(DDP_TRAIN_STEPS, *rows.shape)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, chunk_metrics = chunk(state, stack)      # captures, then replays
+        torch.cuda.synchronize()
+        out["chunk_first_ms"] = 1e3 * (time.perf_counter() - t0) / \
+            DDP_TRAIN_STEPS
+        out["chunk_counts"] = _counts()
+        out["chunk_tc"] = _side_counts()[0]
+        out["chunk_equal"] = all(torch.equal(a, b) for a, b in
+                                 zip(state.tensors(), steps)) and \
+            torch.equal(chunk_metrics["loss"].cpu(),
+                        torch.tensor(out["dp_losses"]))
+        mesh_lib.check_replicas_equal(state.tensors(), "chunked state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(state, stack)                         # replays the graphs
+        torch.cuda.synchronize()
+        out["chunk_ms"] = 1e3 * (time.perf_counter() - t0) / DDP_TRAIN_STEPS
+        chunk.close()
+        del state, steps, chunk
         torch.cuda.empty_cache()
         # 25c: model axis, float32.
         mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=1, model=n))
@@ -3467,9 +3576,9 @@ def _ddp_rank(rank, n, backend, port, out_dir):
 
 
 def phase_ddp_single(tmp, smi):
-    """25a: ``dryrun.entry()``; ``train_ncsn`` under RANK=0 WORLD_SIZE=1
-    (an NCCL group of one) against the same steps without the variables,
-    bit for bit."""
+    """25a: ``dryrun.entry()``; ``train_ncsn --scan_chunk`` under RANK=0
+    WORLD_SIZE=1 (an NCCL group of one) against the same steps by single
+    steps without the variables, bit for bit."""
     import torch.distributed as dist
 
     from smd_tpu_torch import dryrun
@@ -3486,6 +3595,8 @@ def phase_ddp_single(tmp, smi):
         argv = [f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
                 f"--model_dir={tmp}/ddp-{name}", f"--max_steps={DDP_STEPS}",
                 f"--snapshot_freq={DDP_STEPS}", "--logging_freq=10"]
+        if env:   # the chunk in the group, single steps without one
+            argv.append(f"--scan_chunk={DDP_SCAN_CHUNK}")
         keys = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
         if env:
             os.environ.update(RANK="0", WORLD_SIZE="1",
@@ -3510,11 +3621,13 @@ def phase_ddp_single(tmp, smi):
     differ = [n for n, p in runs["group"][0].items()
               if not torch.equal(p, runs["plain"][0][n])]
     if differ:
-        fail(f"train_ncsn in an NCCL group of one differs from the run "
-             f"without one in {len(differ)} parameters, e.g. {differ[:3]}")
+        fail(f"train_ncsn --scan_chunk={DDP_SCAN_CHUNK} in an NCCL group of "
+             f"one differs from its per-step run without one in "
+             f"{len(differ)} parameters, e.g. {differ[:3]}")
     say(f"dryrun.entry(): the flagship's forward on 8x32x42 on the card; "
-        f"train_ncsn {FLAGFILE} at full width, {DDP_STEPS} steps in an NCCL "
-        f"group of one ({runs['group'][2]:.1f} s) and without "
+        f"train_ncsn {FLAGFILE} at full width, {DDP_STEPS} steps in "
+        f"chunks of {DDP_SCAN_CHUNK} (captured) in an NCCL group of one "
+        f"({runs['group'][2]:.1f} s) and by single steps without one "
         f"({runs['plain'][2]:.1f} s): all {len(runs['plain'][0])} parameters "
         f"bit-equal, last loss {runs['plain'][1]:.5f}; on {smi}")
 
@@ -3601,6 +3714,21 @@ def phase_ddp_ranks(smi):
                  f"flash) {got['dp_counts']} ({got['dp_tc']} tensor-core) "
                  f"in {DDP_TRAIN_STEPS} steps, expected {per_rank}, all "
                  "tensor-core")
+    from smd_tpu_torch.utils import graphs
+    per_chunk = tuple((DDP_TRAIN_STEPS + graphs.WARMUP_STEPS) * k
+                      for k in per_call_launches("fused"))
+    for r, got in enumerate(ranks):
+        if not got["chunk_equal"]:
+            fail(f"data-axis rank {r}: the chunk of {DDP_TRAIN_STEPS} "
+                 "steps differs from its single steps (params, moments, EMA "
+                 "or losses)")
+        if got["chunk_counts"] != per_chunk or \
+                got["chunk_tc"] != per_chunk[0]:
+            fail(f"data-axis rank {r}: the chunk launched (attention, film, "
+                 f"w8a8, flash) {got['chunk_counts']} ({got['chunk_tc']} "
+                 f"tensor-core), expected {per_chunk} ({DDP_TRAIN_STEPS} "
+                 f"replays and {graphs.WARMUP_STEPS} warm-up steps), all "
+                 "tensor-core")
     ref = _one_rank_ddp(betas, batch)
     halves, halves_name = _worst(out["dp_params"], ref["halves"])
     one, one_name = _worst(out["dp_params"], ref["batch"])
@@ -3637,6 +3765,17 @@ def phase_ddp_ranks(smi):
         f"{DDP_ONE_BATCH_RTOL}); losses "
         f"{[round(x, 5) for x in out['dp_losses']]} against one rank's "
         f"{[round(x, 5) for x in ref['losses']]}")
+    say(f"25b the chunk on the data axis ({where}): {DDP_TRAIN_STEPS} steps "
+        f"as one chunk from the same start, each step's gradient "
+        f"all-reduce eager between its two captured segments: params, Adam "
+        f"moments, EMA and losses bit-equal to the ranks' single steps, "
+        f"replicas equal (checksums); launches a rank "
+        f"{[got['chunk_counts'] for got in ranks]} ({DDP_TRAIN_STEPS} "
+        f"replays and {graphs.WARMUP_STEPS} warm-up steps); wall ms/step "
+        f"{[round(got['chunk_ms'], 2) for got in ranks]} replayed "
+        f"(the capturing chunk "
+        f"{[round(got['chunk_first_ms'], 2) for got in ranks]}) against "
+        f"{[round(got['dp_ms'], 2) for got in ranks]} by single steps")
     say(f"25b wall ms/step: 1 rank (batch 64) {ref['ms']:.2f}, {DDP_RANKS} "
         f"ranks (32 each) {[round(got['dp_ms'], 2) for got in ranks]}; "
         f"peak memory a rank "
@@ -3682,7 +3821,9 @@ def phase_ddp_ranks(smi):
         f"ranks spawned and run in {spawn_s:.1f} s; on {smi}")
     del state, model
     torch.cuda.empty_cache()
-    return tuple(sum(c) for c in zip(*(got["dp_counts"] for got in ranks)))
+    return tuple(sum(c) for c in zip(*(got[k] for got in ranks
+                                       for k in ("dp_counts",
+                                                 "chunk_counts"))))
 
 
 def phase_dryrun_multichip(smi):
@@ -4284,6 +4425,149 @@ def phase_chains(smi):
     return served
 
 
+# The codec's recurrences as captured chains (phase 28): each chain's step
+# captured in a CUDA graph and replayed (smd_tpu_torch/codec/musicvae.py
+# over utils/graphs.py), against the same call with its steps run eagerly
+# (``graphs.eager()``) from a generator seeded alike: every output and the
+# generator's state bit-equal (torch.equal), at the capturing call and at
+# a replaying one.
+CODEC_CHAIN_BATCHES = (64, 2048)      # melody-2-big chunks, as phase 23a
+CODEC_CHAIN_HIER = 64                 # latents through each hierarchical
+# The planted stale-temperature fault: a second decode at the second
+# temperature through the kept graph, its staged temperature left at the
+# first's (what a graph that baked a Python float would do).
+CODEC_CHAIN_TEMPS = (CODEC_TEMPERATURE, 1.0)
+
+
+@contextlib.contextmanager
+def _stale_temperature():
+    """Chains whose graphs are captured keep the temperature they were
+    staged with: the fault phase 28 must catch."""
+    from smd_tpu_torch.utils import graphs
+    stage = graphs._Slots.stage
+
+    def stale(self, k, inputs, tables, statics):
+        if self.graphs:
+            statics = {n: v for n, v in statics.items() if n != "temp"}
+        return stage(self, k, inputs, tables, statics)
+    graphs._Slots.stage = stale
+    try:
+        yield
+    finally:
+        graphs._Slots.stage = stage
+
+
+def _codec_call(call, seed, eager):
+    """(outputs, generator state after, seconds) of ``call(gen)``, its
+    chains captured (or replayed) or with their steps run eagerly."""
+    from smd_tpu_torch.utils import graphs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), (graphs.eager() if eager
+                           else contextlib.nullcontext()):
+        out = call(gen)
+    torch.cuda.synchronize()
+    return (_outs(out), gen.get_state(), time.perf_counter() - t0)
+
+
+def _one_hot_chunks(n, cfg, seed):
+    tokens = torch.randint(0, cfg.depth, (n, cfg.max_seq_len),
+                           generator=torch.Generator().manual_seed(seed))
+    return torch.nn.functional.one_hot(tokens, cfg.depth).float().cuda()
+
+
+def phase_codec_chains(smi):
+    """28: every codec chain captured against its eager steps, and the
+    planted stale-temperature fault."""
+    from smd_tpu_torch.codec import musicvae as mv
+    from smd_tpu_torch.config import MUSIC_VAE_CONFIG
+    from smd_tpu_torch.utils import graphs
+
+    cases = []
+    cfg = MUSIC_VAE_CONFIG["melody-2-big"].model
+    tree = _codec_tree(cfg, seed=28)
+    x = _one_hot_chunks(max(CODEC_CHAIN_BATCHES), cfg, 28)
+    mu = torch.randn(max(CODEC_CHAIN_BATCHES), cfg.latent_dims,
+                     generator=torch.Generator().manual_seed(29)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        model = mv.build_musicvae(cfg, tree, dtype=dtype, device="cuda")
+        name = f"melody-2-big {str(dtype).split('.')[-1]}"
+        for batch in CODEC_CHAIN_BATCHES:
+            cases.append((f"{name} encode of {batch}", 1,
+                          lambda gen, m=model, b=batch: m.encode(x[:b], gen)))
+            cases.append((f"{name} decode of {batch}", 1,
+                          lambda gen, m=model, b=batch: m.decode(
+                              mu[:b], CODEC_TEMPERATURE, generator=gen)))
+        # The encoder's graph at 64 is kept from the encode above.
+        cases.append((f"{name} teacher-forced forward of 64", 1,
+                      lambda gen, m=model: m(x[:64], gen)))
+        if dtype == torch.float32:
+            float32 = model
+    del tree
+    for entry in ("melody-16-big", "multi-1-big"):
+        e = MUSIC_VAE_CONFIG[entry].model
+        model = mv.build_musicvae(e, _codec_tree(e, seed=28), device="cuda")
+        z = torch.randn(CODEC_CHAIN_HIER, e.latent_dims,
+                        generator=torch.Generator().manual_seed(30)).cuda()
+        cases.append((f"{entry} decode of {CODEC_CHAIN_HIER} latents "
+                      f"(conductor embeddings, logits, tokens)", 2,
+                      lambda gen, m=model, z=z: (m.conductor(z), *m.decode(
+                          z, CODEC_TEMPERATURE, generator=gen))))
+    rows = []
+    _reset_counts()
+    for what, graphs_made, call in cases:
+        eager = _codec_call(call, 28, True)
+        before = _warmups()
+        first = _codec_call(call, 28, False)
+        made = _warmups() - before
+        second = _codec_call(call, 28, False)
+        if made != graphs.WARMUP_STEPS * graphs_made or \
+                _warmups() != before + made:
+            fail(f"28 {what}: the first call ran {made} warm-up steps, "
+                 f"expected {graphs.WARMUP_STEPS} for each of {graphs_made} "
+                 "graphs, and the second none")
+        for which, run in (("capturing", first), ("replaying", second)):
+            if not (_bit_equal(run[0], eager[0]) and
+                    torch.equal(run[1], eager[1])):
+                fail(f"28 {what}: the {which} call differs from the eager "
+                     "steps (outputs or the generator's state)")
+        rows.append(f"{what}: eager {eager[2]:.3f} s, captured "
+                    f"{second[2]:.3f} s (first {first[2]:.3f} s)")
+    if _counts() != (0, 0, 0, 0):
+        fail(f"28: the codec launched a port kernel: {_counts()}")
+
+    # The stale-temperature fault, on the float32 melody-2-big decoder:
+    # the fault's call right after the first, whose temperature the kept
+    # graph's buffer still holds; then the sound second call, and the
+    # fresh eager decode.
+    gumbel = card_gumbel((64, cfg.max_seq_len, cfg.depth), seed=31)
+
+    def decode(temperature):
+        return lambda gen: float32.decode(mu[:64], temperature,
+                                          gumbel=gumbel)
+
+    t1, t2 = CODEC_CHAIN_TEMPS
+    kept = _codec_call(decode(t1), 0, False)[0]
+    with _stale_temperature():
+        stale = _codec_call(decode(t2), 0, False)[0]
+    again = _codec_call(decode(t2), 0, False)[0]
+    fresh = _codec_call(decode(t2), 0, True)[0]
+    if not _bit_equal(again, fresh) or _bit_equal(again, kept):
+        fail("28: the kept decoder graph at another temperature does not "
+             "equal a fresh eager decode there, or equals the first")
+    if _bit_equal(stale, fresh):
+        fail("28: a kept graph whose temperature stayed at the first call's "
+             "passes the check")
+    flips = int((stale[1] != fresh[1]).sum())
+    say("28 codec chains bit-equal to their eager steps (outputs and the "
+        "generator's state, capturing and replaying calls): "
+        + "; ".join(rows) + f"; the kept decoder graph at temperature {t2} "
+        f"after {t1} equals a fresh eager decode at {t2}; the planted "
+        f"stale temperature caught ({flips} of {stale[1].numel()} tokens "
+        f"differ); on {smi}")
+
+
 def main():
     with Phase("1 device"):
         smi = phase_device()
@@ -4380,6 +4664,8 @@ def main():
         served.extend(phase_chunks(smi))
     with Phase("27 captured sampler chains"):
         served.extend(phase_chains(smi))
+    with Phase("28 captured codec chains"):
+        phase_codec_chains(smi)
     # Each kernel's launches in the runs of the paths that run it.
     for i, name in enumerate(KERNELS):
         records[name]["launches"] = sum(c[i] for c in served)

@@ -15,9 +15,29 @@ params tree (the shipped ``checkpoints/musicvae-*.pkl`` bundles) loads with
 - ``conductor/z_to_state``, ``conductor/cell/lstm_{i}``,
   ``conductor/cell/segment_embedding``.
 
-Each LSTM cell computes what ``flax.linen.OptimizedLSTMCell`` computes. The
-time loops are Python loops over one step each (JAX scans them); the four
-gates' kernels are put side by side once per call, not once per step.
+Each LSTM cell computes what ``flax.linen.OptimizedLSTMCell`` computes.
+
+The recurrences. JAX scans the encoder's two LSTMs (``nn.RNN``), the
+decoder and the conductor (``nn.scan``) inside one jitted program. Here
+each is one step body over per-call buffers, run through a kept chain of
+``utils/graphs.py`` (``group="codec"``): the carries, the fed-back token
+and each step's outputs (a row of logits and of samples, a segment
+embedding) are written in place at the row the chain's device index
+names, each step's inputs (the encoder's input products, the decoder's
+Gumbel draws, targets and scheduled-sampling choices) are staged as the
+chain's per-step rows, and the temperature is a 0-d tensor staged each
+call. On the card the step is captured in a CUDA graph and replayed once a
+step; on the CPU (and under ``graphs.eager()``) the same body runs eagerly.
+A call with autograd on (an eager training step) or inside an enclosing
+capture (a captured training step, ``training/graphs.py``) runs the steps
+inline instead, the same per-step arithmetic: the outer graph or autograd
+needs them there. A kept chain holds the gate kernels joined side by side
+in buffers of its own, rewritten from the parameters before each call
+(``refresh``), so its graph reads the weights as they are at the call,
+however they were written since (a captured optimizer step moves no
+version counter); a parameter rebound since the capture makes a new
+chain.
+
 Training: ``elbo_loss`` and scheduled sampling in the teacher-forced
 decoder, whose draws replay through ``gumbel=`` and ``ss_mix=`` as the
 sampled decode's do through ``gumbel=``.
@@ -36,6 +56,7 @@ from torch import nn
 from smd_tpu_torch.codec.melody import MelodyConverter, melody_2bar_converter
 from smd_tpu_torch.device import resolve_device
 from smd_tpu_torch.models.layers import Dense
+from smd_tpu_torch.utils import graphs
 
 __all__ = ["MusicVAEConfig", "MusicVAE", "TrainedMusicVAE", "LSTMCell",
            "Encoder", "Decoder", "DecoderCell", "Conductor", "ConductorCell",
@@ -241,17 +262,103 @@ def input_product(x: torch.Tensor, w_i: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(w_i.dtype), w_i)
 
 
-def _run_lstm(cell: LSTMCell, x: torch.Tensor, reverse: bool = False):
-    """The final carry's ``h`` of ``cell`` over ``x`` (B, T, in) from a zero
-    float32 carry (``nn.RNN`` with ``return_carry=True``)."""
-    xi = input_product(x, cell.input_weights(x.dtype))
-    zeros = torch.zeros(x.shape[0], cell.features, device=x.device)
-    carry = (zeros, zeros)
-    w_h, b_h = cell.recurrent_weights(zeros.dtype)
-    steps = range(x.shape[1] - 1, -1, -1) if reverse else range(x.shape[1])
-    for t in steps:
-        carry = cell.step(carry, xi[:, t], w_h, b_h)
-    return carry[1]
+def _chained(t: torch.Tensor) -> bool:
+    """Whether a recurrence on ``t`` runs as a chain: with autograd off and
+    outside any capture (an enclosing graph or autograd needs the steps
+    inline)."""
+    if torch.is_grad_enabled():
+        return False
+    return not (t.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+def _joined(weights):
+    """(kernels, refresh) for a chain's step body: ``weights()`` gives each
+    cell's gate kernels joined side by side and cast (a list of tuples, new
+    tensors); the step reads the first call's, and ``refresh()`` rewrites
+    them in place from the parameters."""
+    kernels = weights()
+
+    def refresh():
+        torch._foreach_copy_([t for group in kernels for t in group],
+                             [t for group in weights() for t in group])
+
+    return kernels, refresh
+
+
+def _stack_step(layers, weights, carries, x):
+    """One step of an LSTM stack on ``x``: each layer advanced on the one
+    below's ``h``. Returns (the new carries, the top ``h``)."""
+    new = []
+    for cell, (w_i, w_h, b_h), carry in zip(layers, weights, carries):
+        carry = cell.step(carry, input_product(x, w_i), w_h, b_h)
+        new.append(carry)
+        x = carry[1]
+    return new, x
+
+
+def _write_carries(s, carries):
+    for j, (c, h) in enumerate(carries):
+        s[f"c{j}"].copy_(c)
+        s[f"h{j}"].copy_(h)
+
+
+def _read_carries(s, layers: int):
+    return [(s[f"c{j}"], s[f"h{j}"]) for j in range(layers)]
+
+
+def _carry_buffers(carries) -> dict:
+    out = {}
+    for j, (c, h) in enumerate(carries):
+        out[f"c{j}"], out[f"h{j}"] = c, h
+    return out
+
+
+def _bilstm_products(cells: Sequence[LSTMCell], x: torch.Tensor):
+    """The input products of the forward and the backward LSTM over ``x``
+    (B, T, in), each (T, B, 4u) in the order its LSTM reads them: row t is
+    input t for the forward one, input T-1-t for the backward one."""
+    xt = x.transpose(0, 1)
+    return (input_product(xt, cells[0].input_weights(x.dtype)),
+            input_product(xt.flip(0), cells[1].input_weights(x.dtype)))
+
+
+def _bilstm_step(cells):
+    """The encoder's step body: the forward carry (``c0``, ``h0``) advanced
+    on the step's ``xf``, the backward one (``c1``, ``h1``) on its ``xb``,
+    in place."""
+    weights, refresh = _joined(lambda: [
+        cell.recurrent_weights(torch.float32) for cell in cells])
+
+    def step(s):
+        _write_carries(s, [
+            cell.step(carry, s[name], *w) for cell, carry, name, w in zip(
+                cells, _read_carries(s, 2), ("xf", "xb"), weights)])
+        return {}
+    step.refresh = refresh
+    return step
+
+
+def _run_bilstm(encoder: nn.Module, cells: Sequence[LSTMCell],
+                x: torch.Tensor):
+    """The final carries' ``h`` of the forward and the backward LSTM over
+    ``x`` (B, T, in), each from a zero float32 carry (``nn.RNN`` with
+    ``return_carry=True``; the backward one with ``reverse=True``)."""
+    xf, xb = _bilstm_products(cells, x)
+    shape = (x.shape[0], cells[0].features)
+    if _chained(x):
+        zero = graphs.zeros(shape, device=x.device)
+        run = graphs.chain("encoder", encoder, (), x.device,
+                           lambda gen: _bilstm_step(cells), group="codec")
+        bufs, _ = run(None, {"xf": xf, "xb": xb}, {},
+                      _carry_buffers([(zero, zero)] * 2), None)
+        return bufs["h0"].clone(), bufs["h1"].clone()
+    zero = torch.zeros(shape, device=x.device)
+    carries = [(zero, zero)] * 2
+    weights = [cell.recurrent_weights(zero.dtype) for cell in cells]
+    for t in range(xf.shape[0]):
+        carries = [cell.step(carry, xi[t], *w) for cell, carry, xi, w in
+                   zip(cells, carries, (xf, xb), weights)]
+    return carries[0][1], carries[1][1]
 
 
 def _softplus(x):
@@ -262,11 +369,13 @@ def _softplus(x):
 class Encoder(nn.Module):
     """Bidirectional LSTM encoder -> (mu, sigma).
 
-    ``dtype`` is the LSTMs' compute dtype (params stay float32); the latent
-    heads are float32 and ``sigma`` is softplus. Hierarchical configs
-    (``hier_segments > 0``) fold the segments into the batch before the
-    BiLSTM and concatenate the per-segment carries, (B, S·2u), into the
-    heads.
+    The two LSTMs advance together, one step body (see the module's
+    docstring); their input products are taken for every step at once
+    before the steps. ``dtype`` is the LSTMs' compute dtype (params stay
+    float32); the latent heads are float32 and ``sigma`` is softplus.
+    Hierarchical configs (``hier_segments > 0``) fold the segments into the
+    batch before the BiLSTM and concatenate the per-segment carries,
+    (B, S·2u), into the heads.
     """
 
     def __init__(self, config: MusicVAEConfig,
@@ -289,8 +398,8 @@ class Encoder(nn.Module):
         S = max(cfg.hier_segments, 1)
         if S > 1:
             x = x.reshape(B * S, x.shape[1] // S, x.shape[-1])
-        h = torch.cat([_run_lstm(self.OptimizedLSTMCell_0, x),
-                       _run_lstm(self.OptimizedLSTMCell_1, x, reverse=True)],
+        h = torch.cat(_run_bilstm(self, (self.OptimizedLSTMCell_0,
+                                         self.OptimizedLSTMCell_1), x),
                       dim=-1).float()
         if S > 1:
             h = h.reshape(B, -1)
@@ -336,6 +445,12 @@ class Decoder(nn.Module):
     ``jax.random.bernoulli`` decides; what is not given comes from
     ``generator``. A 0-d tensor ``ss_prob`` (a captured training step's)
     always draws, as JAX's scanned step does, whatever its value.
+
+    The steps run as the kept chain of their mode (free-running,
+    teacher-forced, scheduled sampling; see the module's docstring): every
+    draw is made before step 0, as one (B, L, ·) draw each, and staged as
+    the chain's per-step rows, so the generator ends where the inline steps
+    leave it.
     """
 
     def __init__(self, config: MusicVAEConfig,
@@ -370,25 +485,25 @@ class Decoder(nn.Module):
                 else cfg.max_seq_len
         carries = self._init_carries(z)
         z = z.to(self.dtype)
-        token = torch.zeros(B, cfg.depth, dtype=self.dtype, device=z.device)
-        layers = self.cell.layers()
-        # Every layer's input is in the carries' dtype: ``[token; z]``,
-        # then the layer below's ``h``.
-        weights = [cell.weights(self.dtype, carry[1].dtype)
-                   for cell, carry in zip(layers, carries)]
         # A tensor ss_prob (a captured step's) always takes the
         # scheduled-sampling path: its value is not read on the host.
         scheduled = targets is not None and (torch.is_tensor(ss_prob)
                                              or ss_prob > 0)
-        sampled = targets is None or scheduled
-        if sampled:
+        mode = "free" if targets is None else \
+            "scheduled" if scheduled else "teacher"
+        # Each step's inputs, (B, length, ...) stacks.
+        per_step, temp = {}, None
+        if mode != "teacher":
             if gumbel is None:
                 gumbel = gumbel_noise((B, length, cfg.depth), generator,
                                       z.device)
+            per_step["gumbel"] = _checked("gumbel", gumbel,
+                                          (B, length, cfg.depth))
             temp = torch.full((), max(float(temperature), 1e-6),
                               dtype=torch.float32, device=z.device)
         if targets is not None:
-            targets = targets.to(self.dtype)
+            per_step["target"] = _checked(
+                "targets", targets, (B, length, cfg.depth)).to(self.dtype)
             if scheduled:
                 if ss_mix is None:
                     ss_mix = torch.rand((B, length, 1), generator=generator,
@@ -396,32 +511,104 @@ class Decoder(nn.Module):
                 if ss_mix.dtype != torch.bool:
                     ss_mix = ss_mix < torch.as_tensor(ss_prob,
                                                       dtype=torch.float32)
-                ss_mix = ss_mix.to(z.device)
+                per_step["mix"] = _checked("ss_mix", ss_mix.to(z.device),
+                                           (B, length, 1))
+        if _chained(z):
+            return self._chain(mode, carries, z, temp, per_step, length)
+        token = torch.zeros(B, cfg.depth, dtype=self.dtype, device=z.device)
+        layers = self.cell.layers()
+        # Every layer's input is in the carries' dtype: ``[token; z]``,
+        # then the layer below's ``h``.
+        weights = [cell.weights(self.dtype, carry[1].dtype)
+                   for cell, carry in zip(layers, carries)]
         logits, samples = [], []
         for t in range(length):
-            x = torch.cat([token, z], dim=-1)
-            for i, cell in enumerate(layers):
-                w_i, w_h, b_h = weights[i]
-                carries[i] = cell.step(carries[i], input_product(x, w_i),
-                                       w_h, b_h)
-                x = carries[i][1]
+            carries, x = _stack_step(layers, weights, carries,
+                                     torch.cat([token, z], dim=-1))
             step_logits = self.cell.logits(x.float())
             logits.append(step_logits)
-            if sampled:
-                idx = torch.argmax(step_logits / temp + gumbel[:, t], dim=-1)
-                draw = nn.functional.one_hot(idx, cfg.depth).to(
-                    x.dtype if targets is None else targets.dtype)
-            if targets is None:
-                samples.append(idx)
-                token = draw
-            elif scheduled:
-                token = torch.where(ss_mix[:, t], draw, targets[:, t])
-            else:
-                token = targets[:, t]
+            token, idx = _feedback(mode, step_logits, temp,
+                                   {n: v[:, t] for n, v in per_step.items()},
+                                   self.dtype)
+            samples.append(idx)
         logits = torch.stack(logits, dim=1)
         if targets is not None:
             return logits
         return logits, torch.stack(samples, dim=1)
+
+    def _chain(self, mode, carries, z, temp, per_step, length):
+        """The decode through the kept chain of ``mode``."""
+        B, depth, device = z.shape[0], self.config.depth, z.device
+        statics = {"z": z, "token": graphs.zeros((B, depth), self.dtype,
+                                                 device),
+                   "logits": graphs.zeros((B, length, depth),
+                                          device=device),
+                   **_carry_buffers(carries)}
+        if mode != "teacher":
+            statics["temp"] = temp
+        if mode == "free":
+            statics["samples"] = graphs.zeros((B, length), torch.long,
+                                              device)
+        run = graphs.chain(f"{mode} decoder", self, (mode, self.dtype),
+                           device, lambda gen: _decoder_step(self, mode),
+                           group="codec")
+        bufs, _ = run(None, {n: v.transpose(0, 1)
+                             for n, v in per_step.items()}, {}, statics,
+                      None)
+        logits = bufs["logits"].clone()
+        if mode == "free":
+            return logits, bufs["samples"].clone()
+        return logits
+
+
+def _checked(name: str, value: torch.Tensor, shape) -> torch.Tensor:
+    """``value``, raising unless it has ``shape``."""
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(f"the codec's decoder takes {name} of shape "
+                         f"{tuple(shape)}, not {tuple(value.shape)}")
+    return value
+
+
+def _feedback(mode: str, logits: torch.Tensor, temp, inputs, dtype):
+    """(the next step's token in ``dtype``, the sampled index or None)
+    after a step's ``logits``, from the step's ``inputs``: the target
+    (teacher forcing); ``argmax(logits / temp + gumbel)`` as a one-hot
+    (free-running, what ``jax.random.categorical`` draws); or that draw
+    where the step's ``mix`` says so, else the target (scheduled
+    sampling)."""
+    if mode == "teacher":
+        return inputs["target"], None
+    idx = torch.argmax(logits / temp + inputs["gumbel"], dim=-1)
+    draw = nn.functional.one_hot(idx, logits.shape[-1]).to(dtype)
+    if mode == "free":
+        return draw, idx
+    return torch.where(inputs["mix"], draw, inputs["target"]), idx
+
+
+def _decoder_step(decoder: Decoder, mode: str):
+    """The decoder's step body: ``[token; z]`` through the LSTM stack to
+    float32 logits, written at the step's row; the next token chosen by
+    ``_feedback`` and written in place, the sampled index at its row
+    (free-running)."""
+    layers = decoder.cell.layers()
+    weights, refresh = _joined(lambda: [
+        cell.weights(decoder.dtype, decoder.dtype) for cell in layers])
+
+    def step(s):
+        i, token = s["step"], s["token"]
+        carries, x = _stack_step(layers, weights,
+                                 _read_carries(s, len(layers)),
+                                 torch.cat([token, s["z"]], dim=-1))
+        _write_carries(s, carries)
+        logits = decoder.cell.logits(x.float())
+        s["logits"].index_copy_(1, i, logits.unsqueeze(1))
+        new, idx = _feedback(mode, logits, s.get("temp"), s, decoder.dtype)
+        token.copy_(new)
+        if mode == "free":
+            s["samples"].index_copy_(1, i, idx.unsqueeze(1))
+        return {}
+    step.refresh = refresh
+    return step
 
 
 class ConductorCell(nn.Module):
@@ -462,24 +649,55 @@ class Conductor(nn.Module):
         carries = [(init[:, 2 * i * u:(2 * i + 1) * u],
                     init[:, (2 * i + 1) * u:(2 * i + 2) * u])
                    for i in range(self.cell.num_layers)]
-        token = torch.zeros(z.shape[0], cfg.latent_dims, dtype=z.dtype,
-                            device=z.device)
+        shape = (z.shape[0], cfg.latent_dims)
+        if _chained(z):
+            statics = {"token": graphs.zeros(shape, z.dtype, z.device),
+                       "emb": graphs.zeros((shape[0], cfg.hier_segments,
+                                            shape[1]), device=z.device),
+                       **_carry_buffers(carries)}
+            dtypes = (z.dtype, init.dtype)
+            run = graphs.chain("conductor", self, dtypes, z.device,
+                               lambda gen: _conductor_step(self, *dtypes),
+                               group="codec")
+            bufs, _ = run(None, {}, {}, statics,
+                          [None] * cfg.hier_segments)
+            return bufs["emb"].clone()
+        token = torch.zeros(shape, dtype=z.dtype, device=z.device)
         layers = self.cell.layers()
-        # The inputs after the first step are float32 segment embeddings;
-        # float32 kernels give every step the same product dtype.
-        weights = [cell.weights(z.dtype, carry[1].dtype)
-                   for cell, carry in zip(layers, carries)]
+        weights = _conductor_weights(self, z.dtype, init.dtype)
         embeddings = []
         for _ in range(cfg.hier_segments):
-            h = token
-            for i, cell in enumerate(layers):
-                w_i, w_h, b_h = weights[i]
-                carries[i] = cell.step(carries[i], input_product(h, w_i),
-                                       w_h, b_h)
-                h = carries[i][1]
+            carries, h = _stack_step(layers, weights, carries, token)
             token = self.cell.segment_embedding(h)
             embeddings.append(token)
         return torch.stack(embeddings, dim=1)
+
+
+def _conductor_weights(conductor: Conductor, z_dtype, carry_dtype):
+    # The inputs after the first step are float32 segment embeddings;
+    # float32 kernels give every step the same product dtype.
+    return [cell.weights(z_dtype, carry_dtype)
+            for cell in conductor.cell.layers()]
+
+
+def _conductor_step(conductor: Conductor, z_dtype, carry_dtype):
+    """The conductor's step body: the previous embedding through the LSTM
+    stack to the next segment embedding, written at the step's row and fed
+    back in place."""
+    layers = conductor.cell.layers()
+    weights, refresh = _joined(lambda: _conductor_weights(
+        conductor, z_dtype, carry_dtype))
+
+    def step(s):
+        carries, h = _stack_step(layers, weights,
+                                 _read_carries(s, len(layers)), s["token"])
+        _write_carries(s, carries)
+        token = conductor.cell.segment_embedding(h)
+        s["emb"].index_copy_(1, s["step"], token.unsqueeze(1))
+        s["token"].copy_(token)
+        return {}
+    step.refresh = refresh
+    return step
 
 
 class MusicVAE(nn.Module):
@@ -682,12 +900,28 @@ class TrainedMusicVAE:
     def latent_dims(self):
         return self.config.latent_dims
 
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """``n`` rounded up to a power of two (JAX's ``_bucket``)."""
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
     def encode_tensors(self, tensors):
-        """(z, mu, sigma) float32 numpy of a list of one-hot chunks."""
-        x = torch.from_numpy(np.stack(tensors).astype(np.float32))
+        """(z, mu, sigma) float32 numpy of a list of one-hot chunks. The
+        batch is padded with zero chunks to a power of two and the rows
+        sliced back, as in the JAX package, so songs of any length reuse
+        O(log N) captured encoder chains; the noise is drawn for the padded
+        batch, as JAX draws it."""
+        n = len(tensors)
+        x = np.stack(tensors).astype(np.float32)
+        x = np.concatenate([x, np.zeros((self._bucket(n) - n, *x.shape[1:]),
+                                        np.float32)])
         with torch.no_grad():
-            out = self.model.encode(x.to(self.device), self._generator)
-        return tuple(t.cpu().numpy() for t in out)
+            out = self.model.encode(torch.from_numpy(x).to(self.device),
+                                    self._generator)
+        return tuple(t[:n].cpu().numpy() for t in out)
 
     def encode(self, sequences: Sequence) -> Tuple[np.ndarray, ...]:
         tensors = []
@@ -699,13 +933,30 @@ class TrainedMusicVAE:
         return self.encode_tensors(tensors)
 
     def decode_to_tensors(self, z, temperature=1e-3, gumbel=None):
-        """Sampled tokens (B, max_seq_len) int32 of latents ``z``."""
+        """Sampled tokens (B, max_seq_len) int32 of latents ``z``.
+
+        The Gumbel draws (``gumbel``, else drawn from the codec's generator)
+        are those of the B rows, as an unpadded decode makes them; the
+        latents and the draws are then padded with zero rows to a power of
+        two and the tokens sliced back, so decodes of any batch reuse
+        O(log N) captured decoder chains. (The JAX package pads only the
+        encode; each row's tokens are the same.)"""
+        cfg = self.config
         z = torch.tensor(np.asarray(z, np.float32), device=self.device)
+        n = z.shape[0]
+        S = max(cfg.hier_segments, 1)
+        if gumbel is None:
+            gumbel = gumbel_noise((n * S, cfg.max_seq_len // S, cfg.depth),
+                                  self._generator, self.device)
+        gumbel = torch.as_tensor(gumbel, device=self.device)
+        pad = self._bucket(n) - n
+        z = torch.cat([z, z.new_zeros((pad, z.shape[1]))])
+        gumbel = torch.cat([gumbel, gumbel.new_zeros(
+            (pad * S, *gumbel.shape[1:]))])
         with torch.no_grad():
             _, samples = self.model.decode(z, float(temperature),
-                                           generator=self._generator,
                                            gumbel=gumbel)
-        return samples.cpu().numpy().astype(np.int32)
+        return samples[:n].cpu().numpy().astype(np.int32)
 
     def decode(self, z, temperature=1e-3, length=None) -> List:
         """NoteSequences of latents ``z``; ``length`` is ignored, as in the

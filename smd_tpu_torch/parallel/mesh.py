@@ -31,8 +31,8 @@ from smd_tpu_torch.device import resolve_device
 
 __all__ = ["MeshConfig", "Mesh", "mesh_shape", "make_mesh",
            "initialize_distributed", "param_spec", "shard_params",
-           "shard_batch", "check_replicas_equal", "all_reduce_mean",
-           "gather_leaf", "slice_leaf", "barrier"]
+           "shard_batch", "shard_chunk", "check_replicas_equal", "pack",
+           "unpack", "gather_leaf", "slice_leaf", "barrier"]
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -180,14 +180,31 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> Dict[str, tuple]:
     return specs
 
 
+def _rows(total: int, mesh: Mesh, what: str) -> int:
+    if total % mesh.data:
+        raise ValueError(f"a {what} of {total} rows does not split over a "
+                         f"data axis of {mesh.data}")
+    return total // mesh.data
+
+
 def shard_batch(batch: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """This rank's rows of a global batch: block ``data_index`` of ``data``
-    along the leading axis. The port runs no scanned chunk of steps
-    (``training/loop.py``), so there is no ``shard_chunk``."""
+    along the leading axis."""
     if mesh is None or mesh.data == 1:
         return batch
-    rows = batch.shape[0] // mesh.data
+    rows = _rows(batch.shape[0], mesh, "global batch")
     return batch[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+
+
+def shard_chunk(batches, mesh: Optional[Mesh]):
+    """This rank's rows of a (K, batch, ...) stack of K step batches: the
+    step axis whole, each step's batch axis (dim 1) split as
+    ``shard_batch`` splits one step's (JAX's ``shard_chunk``, which lays
+    the stack out so over the mesh's devices)."""
+    if mesh is None or mesh.data == 1:
+        return batches
+    rows = _rows(batches.shape[1], mesh, "step batch of the chunk")
+    return batches[:, mesh.data_index * rows:(mesh.data_index + 1) * rows]
 
 
 def check_replicas_equal(tensors: Iterable[torch.Tensor],
@@ -211,16 +228,20 @@ def check_replicas_equal(tensors: Iterable[torch.Tensor],
             "every rank must draw them from the same seed")
 
 
-def all_reduce_mean(tensors: List[torch.Tensor], group, size: int
-                    ) -> List[torch.Tensor]:
-    """The mean of each tensor over ``group``, through one flattened
-    float32 buffer: concatenated, all-reduced, divided by ``size`` and
-    split back into each tensor's shape and dtype."""
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=group)
+def pack(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The tensors concatenated into one flat float32 buffer (the data
+    group's all-reduce of a step's gradients and loss takes one)."""
+    return torch.cat([t.reshape(-1).float() for t in tensors])
+
+
+def unpack(flat: torch.Tensor, like: List[torch.Tensor], size: int
+           ) -> List[torch.Tensor]:
+    """``flat`` (a ``pack`` of ``like``, summed over ``size`` ranks)
+    divided by ``size`` in place and split back into each tensor of
+    ``like``'s shape and dtype."""
     flat /= size
     out, start = [], 0
-    for t in tensors:
+    for t in like:
         out.append(flat[start:start + t.numel()].view(t.shape).to(t.dtype))
         start += t.numel()
     return out

@@ -22,6 +22,13 @@ kernels.
   ``state.tensors`` names and the generator's state).
 - **The generator.** The state's own CUDA generator is registered with the
   graph, so a replay draws what the next eager step would draw.
+- **The data axis.** Under a mesh with a data axis the step's gradient
+  all-reduce runs between two captured segments (``TrainState.descent``
+  yields the flat buffer of the gradients and the loss): the forward, the
+  backward and the buffer in one graph, the all-reduce eagerly on the data
+  group with whichever backend it has, then the mean, the norm, clipping,
+  Adam and the EMA in a second graph; the same arithmetic as the per-step
+  run. A model axis above 1 raises (``loop.MESH_CHUNK``).
 - **Things that cannot be captured** raise with their name: ``remat``
   (``torch.utils.checkpoint`` saves the generator's state), autograd's
   anomaly mode (``debug_nans``: the loop checks the chunk's losses instead,
@@ -89,7 +96,7 @@ class TrainChunk:
         draws = tuple(slot[n] for n in sorted(slot)
                       if n.startswith("draw")) or None
         loss = self.loss_fn(state, slot["batch"], draws)
-        return state.descend(loss, hyper=slot)
+        return state.descent(loss, hyper=slot)
 
     def close(self):
         if self._chunk is not None:

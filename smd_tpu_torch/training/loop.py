@@ -13,7 +13,10 @@ on the CPU K eager steps). Chunks are cut short where a snapshot or
 per-step loop puts them; the loop logs at chunk granularity (the row of the
 step that crosses a logging boundary), and ``debug_nans`` checks the
 chunk's (K,) losses in place of autograd's anomaly mode, which a graph
-cannot capture.
+cannot capture. Under a mesh whose model axis is 1 the chunk runs on every
+rank, each on its rows of the K step batches (the data iterables yield
+them, as for a step), the gradients' all-reduce between the captured
+segments of each step; a model axis above 1 raises (``MESH_CHUNK``).
 
 Under a ``parallel.mesh.Mesh`` every rank runs the loop in step: the eval
 loss and its example count are summed over the data group, so early
@@ -39,14 +42,24 @@ from smd_tpu_torch.utils import checkpoints as ckpt_lib
 from smd_tpu_torch.utils import logging as log_lib
 from smd_tpu_torch.utils import profiling
 
-__all__ = ["evaluate", "run_loop", "device_prefetch"]
+__all__ = ["evaluate", "run_loop", "device_prefetch", "check_chunk_mesh"]
 
 log = logging.getLogger("smd_tpu_torch")
 
-MESH_CHUNK = ("scan_chunk > 1 under a mesh is not ported: the chunk is a "
-              "CUDA graph of one rank's step, whose gradient all-reduce gloo "
-              "cannot run inside a capture (ROADMAP.md, B: the chunk under "
-              "NCCL); train with scan_chunk=1")
+MESH_CHUNK = ("scan_chunk > 1 under a model axis of {model} is not ported: "
+              "that axis's collectives run inside the forward pass (the "
+              "column-parallel all-gathers) and inside the gradients' "
+              "global norm, in the middle of the captured step, where gloo "
+              "cannot run them and only NCCL could be captured; train with "
+              "scan_chunk=1 or a model axis of 1")
+
+
+def check_chunk_mesh(mesh):
+    """Raise unless a chunk can run under ``mesh``: one rank, or a data
+    axis alone (its all-reduce runs eagerly between the step's captured
+    segments, ``TrainState.descent``)."""
+    if mesh is not None and mesh.model > 1:
+        raise ValueError(MESH_CHUNK.format(model=mesh.model))
 
 
 def device_prefetch(iterator, device, size: int = 2):
@@ -117,8 +130,8 @@ def run_loop(state,
     """
     scan_chunk = getattr(config, "scan_chunk", 1)
     use_chunk = train_chunk is not None and scan_chunk > 1
-    if use_chunk and mesh is not None:
-        raise ValueError(MESH_CHUNK)
+    if use_chunk:
+        check_chunk_mesh(mesh)
     debug_nans = getattr(config, "debug_nans", False)
     if debug_nans and not use_chunk:
         torch.autograd.set_detect_anomaly(True)

@@ -61,10 +61,12 @@ def _loss(state: TrainState, batch, draws=None):
 def make_train_chunk(mesh=None) -> graphs.TrainChunk:
     """``train_chunk(state, batches) -> (state, metrics)``: ``scan_chunk``
     train steps on a (K, batch, ...) stack, each metric a (K,) row (JAX's
-    ``make_train_chunk``; see ``diffusion.make_train_chunk``). Under
-    ``mesh`` it raises, as the diffusion chunk does."""
-    if mesh is not None:
-        raise ValueError(loop_lib.MESH_CHUNK)
+    ``make_train_chunk``; see ``diffusion.make_train_chunk``). Under a
+    ``mesh`` with a data axis alone ``batches`` is this rank's rows of each
+    step's batch, the gradients averaged over the data group between the
+    step's captured segments; a model axis above 1 raises, as the
+    diffusion chunk does."""
+    loop_lib.check_chunk_mesh(mesh)
     return graphs.TrainChunk(_loss, "MDN train step")
 
 

@@ -17,9 +17,13 @@ parameters split over the model axis): ``descend`` averages the gradients
 (and the loss) over the data group through one flattened buffer, and the
 global norm sums the split leaves' squares over the model group, counting
 each replicated leaf once; clipping, Adam and the EMA then run alike on
-every rank. ``state_dict`` gathers the split leaves whole (a collective:
-every rank calls it) and ``load_state_dict`` keeps this rank's blocks, so
-a checkpoint restores under any grid and serves on one card.
+every rank. ``descent`` is the same step as a generator that yields the
+flat buffer and its all-reduce at the point where it runs, so a captured
+step (``utils/graphs.py``) can run the collective eagerly between two
+graphs; ``descend`` runs it straight through, with the same arithmetic.
+``state_dict`` gathers the split leaves whole (a collective: every rank
+calls it) and ``load_state_dict`` keeps this rank's blocks, so a
+checkpoint restores under any grid and serves on one card.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch import nn
 
 from smd_tpu_torch.parallel import mesh as mesh_lib
 from smd_tpu_torch.training.optimizer import Optimizer
+from smd_tpu_torch.utils import graphs
 
 __all__ = ["TrainState", "EarlyStopping"]
 
@@ -118,7 +123,15 @@ class TrainState:
         metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float, or
         ``hyper``'s tensor). Under a data axis the gradients and the loss
         are the data group's means."""
-        grads, loss = self.gradients(loss)
+        return graphs.finish(self.descent(loss, hyper))
+
+    def descent(self, loss: torch.Tensor,
+                hyper: Optional[Dict[str, torch.Tensor]] = None):
+        """``descend`` as a generator: under a data axis it yields
+        (the flat buffer of the gradients and the loss, its all-reduce over
+        the data group) between the backward pass and the rest of the step;
+        returns the metrics."""
+        grads, loss = yield from self._gradients(loss)
         grad_norm = self.global_norm(grads)
         lr = self.apply_gradients(grads, grad_norm, hyper)
         return {"loss": loss, "grad": grad_norm, "lr": lr}
@@ -130,16 +143,25 @@ class TrainState:
 
     def gradients(self, loss: torch.Tensor):
         """({name: gradient of ``loss``}, the loss detached); under a data
-        axis both are the data group's means, through one flattened
-        buffer. A split parameter's gradient is its block's."""
+        axis both are the data group's means: ``mesh.pack``, summed over
+        the group, ``mesh.unpack``. A split parameter's gradient is its
+        block's."""
+        return graphs.finish(self._gradients(loss))
+
+    def _gradients(self, loss: torch.Tensor):
         params = self.params
         grads = torch.autograd.grad(loss, list(params.values()))
         loss = loss.detach()
         mesh = self.mesh
         if mesh is not None and mesh.data > 1:
-            *grads, loss = mesh_lib.all_reduce_mean(
-                [*grads, loss], mesh.data_group, mesh.data)
+            tensors = [*grads, loss]
+            flat = mesh_lib.pack(tensors)
+            yield flat, self._all_reduce
+            *grads, loss = mesh_lib.unpack(flat, tensors, mesh.data)
         return dict(zip(params, grads)), loss
+
+    def _all_reduce(self, flat: torch.Tensor):
+        torch.distributed.all_reduce(flat, group=self.mesh.data_group)
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole gradients, in float32: the split

@@ -37,9 +37,17 @@ a step where the eager step launches hundreds to thousands of kernels.
 - **Launch counters.** A capture launches nothing: the kernels' wrapper
   counts (``ops``) that a capture raised are taken back and added once at
   each replay. The warm-up's launches are real and stay counted.
+- **A collective between segments.** A step may return a generator in
+  place of its metrics: it yields ``(buffer, fn)`` where ``fn(buffer)``
+  must run eagerly (a ``torch.distributed`` all-reduce, which gloo cannot
+  run inside a capture) and returns the metrics. Each stretch between two
+  yields is a graph of its own, captured in order into the one pool; a
+  replay runs graph, ``fn(buffer)``, graph, ... The warm-up steps call
+  ``fn`` too, so every rank of a group runs them in lockstep.
 - **Failures raise.** A mode named in ``unsupported``, autograd's anomaly
-  mode, a state tensor rebound since the capture, or a capture that fails
-  raises with the step's label; nothing falls back to eager steps.
+  mode, a state tensor rebound since the capture, or a capture, replay or
+  collective that fails raises with the step's label; nothing falls back to
+  eager steps.
 
 On a CPU the same step runs eagerly, reading its slots from the same staged
 buffers: the plain version, which the tests hold against the JAX package.
@@ -49,11 +57,16 @@ captured chain is held against, never a serving path.
 ``chain`` keeps the sampler chains' chunks across calls, as a jitted JAX
 sampler compiles once: a second call with the same label, model function
 and options replays the graphs the first captured (``MAX_CHAINS`` kept,
-least recently used first out; ``release()`` frees them all).
+least recently used first out; ``release()`` frees them all). The codec's
+recurrences (``codec/musicvae.py``) keep theirs in a pool of their own
+(``group="codec"``, ``MAX_CODEC_CHAINS``), so a noise -> MIDI call (a
+sampler chain, then the codec's conductor and decoder) replays every one of
+its graphs at its second call however many sampler chains ran between.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
@@ -61,10 +74,14 @@ import numpy as np
 import torch
 
 __all__ = ["StepChunk", "WARMUP_STEPS", "launch_counters", "eager",
-           "zeros", "chain", "release", "MAX_CHAINS"]
+           "zeros", "chain", "release", "finish", "MAX_CHAINS",
+           "MAX_CODEC_CHAINS"]
 
 WARMUP_STEPS = 2
 MAX_CHAINS = 4
+# One codec's recurrences: its encoder, its conductor and its decoder in
+# each of three modes (free-running, teacher-forced, scheduled sampling).
+MAX_CODEC_CHAINS = 5
 
 # Eager warm-up steps run before captures since the module was loaded.
 warmup_steps = 0
@@ -106,6 +123,21 @@ def _add_counters(deltas):
         setattr(obj, attr, getattr(obj, attr) + delta)
 
 
+def finish(out):
+    """A step's metrics: ``out`` itself, or, where the step returned a
+    generator (a step with a collective point), the generator run to its
+    end, each yielded ``fn(buffer)`` called in turn."""
+    if not inspect.isgenerator(out):
+        return out
+    try:
+        point = next(out)
+        while True:
+            point[1](point[0])
+            point = next(out)
+    except StopIteration as stop:
+        return stop.value
+
+
 def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     """A per-call buffer's zero start: one element expanded to ``shape``."""
     return torch.zeros((), dtype=dtype, device=device).expand(*shape)
@@ -141,7 +173,8 @@ class _Slots:
                                   dtype=torch.float32, device=device)
         self.index = torch.zeros((1,), dtype=torch.long, device=device)
         self.rows: Optional[Dict[str, torch.Tensor]] = None
-        self.graphs: Dict[Hashable, tuple] = {}   # variant -> (graph, deltas)
+        # variant -> (graphs, collective points between them, deltas)
+        self.graphs: Dict[Hashable, tuple] = {}
         self.pool = None
         self.pointers = None
 
@@ -160,10 +193,11 @@ class _Slots:
         self.index.zero_()
 
     def body(self, step, variant=None):
-        """One step on slot ``index``: its metrics written at ``index``,
-        then the index advanced. The step sees each input's row, each
-        table's 0-d value, the per-call buffers, the index as ``step`` and
-        the step's ``variant``."""
+        """One step on slot ``index``, as a generator: it yields the
+        step's collective points (``(buffer, fn)``, see ``StepChunk``),
+        then writes the metrics at ``index`` and advances the index. The
+        step sees each input's row, each table's 0-d value, the per-call
+        buffers, the index as ``step`` and the step's ``variant``."""
         i = self.index
         slot = {n: buf.index_select(0, i)[0]
                 for n, buf in self.inputs.items()}
@@ -175,6 +209,8 @@ class _Slots:
         if variant is not None:
             slot["variant"] = variant
         metrics = step(slot)
+        if inspect.isgenerator(metrics):
+            metrics = yield from metrics
         if self.rows is None:
             self.rows = {n: torch.zeros((self.slots, *v.shape),
                                         dtype=v.dtype, device=v.device)
@@ -183,9 +219,14 @@ class _Slots:
             self.rows[name].index_copy_(0, i, value.detach().unsqueeze(0))
         i.add_(1)
 
+    def run(self, step, variant=None):
+        """One step eagerly, its collectives called where they fall."""
+        finish(self.body(step, variant))
+
     def close(self):
-        for graph, _ in self.graphs.values():
-            graph.reset()
+        for segments, _, _ in self.graphs.values():
+            for graph in segments:
+                graph.reset()
         self.graphs = {}
         self.rows = self.pool = None
 
@@ -201,7 +242,9 @@ class StepChunk:
     beside the per-call buffers (saved and restored around the warm-up;
     their storage checked before each chunk); ``generator`` is the step's
     generator; ``unsupported`` names modes of the step that cannot be
-    captured (raised on the card); ``label`` names the step in errors.
+    captured (raised on the card); ``label`` names the step in errors. A
+    step that returns a generator yields its collective points (see the
+    module's docstring).
     """
 
     def __init__(self, step: Callable, mutable: Callable[[], List],
@@ -250,7 +293,7 @@ class StepChunk:
         slots.stage(k, inputs, tables, statics)
         if device.type != "cuda" or _EAGER:
             for variant in order:
-                slots.body(self.step, variant)
+                slots.run(self.step, variant)
         else:
             missing = [v for v in dict.fromkeys(order)
                        if v not in slots.graphs]
@@ -300,7 +343,10 @@ class StepChunk:
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_STEPS):
                     slots.index.zero_()
-                    slots.body(self.step, variant)
+                    slots.run(self.step, variant)
+        except Exception as e:
+            raise RuntimeError(f"the warm-up of the {self.label} before its "
+                               f"CUDA graph's capture failed: {e}") from e
         finally:
             torch.cuda.current_stream().wait_stream(side)
             if mutable:
@@ -310,16 +356,23 @@ class StepChunk:
                 generator.set_state(gen_state)
         warmup_steps += WARMUP_STEPS
         del saved
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
         if slots.pool is None:
             slots.pool = torch.cuda.graph_pool_handle()
         before = _read_counters()
         slots.index.zero_()
+        segments, points = [], []
+        body = slots.body(self.step, variant)
         try:
-            with torch.cuda.graph(graph, pool=slots.pool):
-                slots.body(self.step, variant)
+            while True:
+                graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    graph.register_generator_state(generator)
+                with torch.cuda.graph(graph, pool=slots.pool):
+                    point = next(body, None)
+                segments.append(graph)
+                if point is None:
+                    break
+                points.append(point)
         except Exception as e:
             raise RuntimeError(f"capturing the {self.label} in a CUDA graph "
                                f"failed: {e}") from e
@@ -328,7 +381,7 @@ class StepChunk:
                 generator.set_state(gen_state)
         deltas = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in deltas])
-        slots.graphs[variant] = (graph, deltas)
+        slots.graphs[variant] = (segments, points, deltas)
         slots.pointers = [t.data_ptr() for t in mutable]
 
     def _replay(self, slots: _Slots, order):
@@ -338,8 +391,12 @@ class StepChunk:
                 "its CUDA graph was captured; write states in place")
         try:
             for variant in order:
-                graph, deltas = slots.graphs[variant]
-                graph.replay()
+                segments, points, deltas = slots.graphs[variant]
+                for j, graph in enumerate(segments):
+                    graph.replay()
+                    if j < len(points):
+                        buffer, fn = points[j]
+                        fn(buffer)
                 _add_counters(deltas)
         except Exception as e:
             raise RuntimeError(f"replaying the {self.label}'s CUDA graph "
@@ -404,6 +461,9 @@ class _Chain:
             generator = _default_generator(self.generator.device)
         self.generator.set_state(generator.get_state())
         with torch.no_grad():
+            refresh = getattr(self.chunk.step, "refresh", None)
+            if refresh is not None:
+                refresh()
             metrics = self.chunk(inputs, tables, statics, variants)
         generator.set_state(self.generator.get_state())
         return self.chunk.statics(), metrics
@@ -421,18 +481,28 @@ def _default_generator(device: torch.device) -> torch.Generator:
 
 
 _CHAINS: "OrderedDict[tuple, _Chain]" = OrderedDict()
+_CODEC_CHAINS: "OrderedDict[tuple, _Chain]" = OrderedDict()
+_GROUPS = {"sampler": (_CHAINS, lambda: MAX_CHAINS),
+           "codec": (_CODEC_CHAINS, lambda: MAX_CODEC_CHAINS)}
 
 
 def chain(label: str, model_fn, options: tuple, device: torch.device,
-          make_step: Callable[[torch.Generator], Callable]) -> _Chain:
+          make_step: Callable[[torch.Generator], Callable],
+          group: str = "sampler") -> _Chain:
     """The kept chain of ``label`` over ``model_fn`` with ``options`` (which
     fix everything ``make_step`` bakes into the step), made with
     ``make_step(generator)`` when there is none or when ``model_fn`` now
-    holds other tensors. Call it as ``chain(...)(generator, inputs, tables,
-    statics, variants)`` -> (per-call buffers, metrics)."""
+    holds other tensors. A step function may carry ``refresh()``, run
+    before each call's steps, outside any graph: it rewrites in place what
+    the step derives from the parameters (the codec's gate kernels, joined
+    side by side), so a replay never reads a copy older than the call.
+    ``group`` names the pool and its bound (``"sampler"``, MAX_CHAINS;
+    ``"codec"``, MAX_CODEC_CHAINS). Call it as ``chain(...)(generator,
+    inputs, tables, statics, variants)`` -> (per-call buffers, metrics)."""
+    chains, bound = _GROUPS[group]
     device = torch.device(device)
     key = (label, model_fn, options, device)
-    entry = _CHAINS.get(key)
+    entry = chains.get(key)
     if entry is not None and entry.fingerprint != _fingerprint(model_fn):
         entry.close()
         entry = None
@@ -441,14 +511,16 @@ def chain(label: str, model_fn, options: tuple, device: torch.device,
             type(model_fn).__name__
         entry = _Chain(make_step, f"{label} step of {name}", model_fn,
                        device)
-        _CHAINS[key] = entry
-        while len(_CHAINS) > MAX_CHAINS:
-            _CHAINS.popitem(last=False)[1].close()
-    _CHAINS.move_to_end(key)
+        chains[key] = entry
+        while len(chains) > bound():
+            chains.popitem(last=False)[1].close()
+    chains.move_to_end(key)
     return entry
 
 
 def release():
-    """Free every kept chain, its graphs and its buffers."""
-    while _CHAINS:
-        _CHAINS.popitem()[1].close()
+    """Free every kept chain (the samplers' and the codec's), its graphs
+    and its buffers."""
+    for chains, _ in _GROUPS.values():
+        while chains:
+            chains.popitem()[1].close()

@@ -10,8 +10,8 @@ steps from the same state and generator state, bit for bit (on the CPU the
 chunk runs its steps eagerly, reading its slots from the staged buffers
 the card's CUDA graph reads); the state's storage kept across steps,
 chunks and a resume (what a captured step needs); the staged tables equal
-to the host's floats; the loop's chunk boundaries; the mesh and debug
-rules. Small sizes.
+to the host's floats; the loop's chunk boundaries; the mesh rule (a data
+axis runs, a model axis raises) and the debug rule. Small sizes.
 """
 import types
 
@@ -492,17 +492,29 @@ def test_chunked_resume_equals_a_straight_chunked_run(tmp_path):
 
 
 def test_scan_chunk_under_a_mesh_raises():
-    """The chunk is one rank's captured step: under a mesh it raises,
-    naming the ROADMAP item, and never runs the steps eagerly."""
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """Under a mesh whose model axis is 1 the chunk is made and the loop
+    takes it (the data axis's all-reduce runs between the step's captured
+    segments); a model axis above 1 raises, naming that axis and why (its
+    collectives sit inside the forward pass and the norm), and never runs
+    the steps eagerly."""
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    data = mesh_lib.Mesh(data=2, model=1)
+    assert isinstance(trainer.make_train_chunk(
+        losses.diffusion_loss, _betas(), True, mesh=data), graphs.TrainChunk)
+    assert isinstance(mdn.make_train_chunk(mesh=data), graphs.TrainChunk)
+    loop.check_chunk_mesh(data)
+    loop.check_chunk_mesh(None)
+    model = mesh_lib.Mesh(data=1, model=2)
+    message = "model axis of 2 is not ported.*forward pass"
+    with pytest.raises(ValueError, match=message):
         trainer.make_train_chunk(losses.diffusion_loss, _betas(), True,
-                                 mesh=object())
-    with pytest.raises(ValueError, match="ROADMAP"):
-        mdn.make_train_chunk(mesh=object())
+                                 mesh=model)
+    with pytest.raises(ValueError, match=message):
+        mdn.make_train_chunk(mesh=model)
     state = _port_state(_tiny_ddpm())
     config = trainer.TrainConfig(scan_chunk=4)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        loop.run_loop(state, None, None, None, None, config, mesh=object(),
+    with pytest.raises(ValueError, match=message):
+        loop.run_loop(state, None, None, None, None, config, mesh=model,
                       train_chunk=lambda s, b: (s, {}))
 
 

@@ -10,9 +10,12 @@ mesh (data 2; data 1 x model 2): the gradients within 1e-5 of each leaf's
 norm, the params after the step within 1e-5 (the key biases, on float
 noise, within 1e-3: see ``KEY_BIAS_RTOL``); runs the
 loop on both grids (checkpoints, resume, the result loaded on one rank and
-held to one rank's run); and trains through ``train_ncsn``
-(model axis 2) and ``train_mdn`` (data axis 2). ``dryrun_multichip(4)``
-spawns 4 ranks of its own. Also the op profile of ``utils/profiling``.
+held to one rank's run); takes the diffusion and MDN trainers' chunks on
+the data axis (a chunk of 4 and one of 2) bit-equal to the same ranks'
+single steps and within 1e-5 of JAX's chunks over its mesh of 2 of those
+devices (``shard_chunk``); and trains through ``train_ncsn`` (model axis
+2; data axis 2 chunked and by single steps) and ``train_mdn`` (data axis
+2). ``dryrun_multichip(4)`` spawns 4 ranks of its own. Also the op profile of ``utils/profiling``.
 """
 import json
 import os
@@ -32,6 +35,7 @@ from smd_tpu.models import get_model as jax_get_model
 from smd_tpu.models.fuse import fuse_attention_params, fuse_head_params
 from smd_tpu.parallel import mesh as jmesh
 from smd_tpu.training import diffusion as jtrainer
+from smd_tpu.training import mdn as jmdn
 from smd_tpu.training import optimizer as joptimizer
 from smd_tpu.utils import profiling as jprofiling
 from smd_tpu_torch import dryrun
@@ -44,6 +48,8 @@ from smd_tpu_torch.training import loop as loop_lib
 from smd_tpu_torch.utils import profiling
 from smd_tpu_torch.utils.checkpoints import CheckpointManager
 from smd_tpu_torch.utils.flax_params import flatten, load_flax_params
+from test_torch_mdn import KW as MDN_KW
+from test_torch_mdn import _jax_setup as _mdn_jax_setup
 
 ROOT = Path(__file__).resolve().parent.parent
 KW = dict(num_layers=2, num_heads=2, num_mlp_layers=2, mlp_dims=64,
@@ -174,6 +180,21 @@ def _replayed_draws(rng, batch_shape):
 
 
 RNG_SEED = 11
+# The chunks on the data axis: 6 steps of a global batch of CHUNK_BATCH
+# rows, as a chunk of 4 and a chunk of 2, JAX's chunk j drawing from
+# PRNGKey(CHUNK_KEYS[j]).
+CHUNK_BATCH = 8
+CHUNK_CUTS = ((0, 4), (4, 6))
+CHUNK_KEYS = (21, 22)
+
+
+def _chunk_draws(batch_shape):
+    """The draws of JAX's chunks (each splits its key once a step), stacked
+    over the 6 steps."""
+    draws = [_replayed_draws(key, batch_shape)
+             for seed, (lo, hi) in zip(CHUNK_KEYS, CHUNK_CUTS)
+             for key in jax.random.split(jax.random.PRNGKey(seed), hi - lo)]
+    return tuple(np.stack(d) for d in zip(*draws))
 
 
 def _case(work):
@@ -185,7 +206,8 @@ def _case(work):
                                rng.normal(size=(n, 32, 512)).astype(
                                    np.float32))
     xla_freqs = {half: np.asarray(jnp.exp(jnp.arange(half) * -(
-        jnp.log(10000.0) / float(half - 1)))) for half in (16, 64)}
+        jnp.log(10000.0) / float(half - 1)))) for half in (8, 16, 64)}
+    chunk_shape = (CHUNK_CUTS[-1][1], CHUNK_BATCH, S, C)
     return {"params": _jax_params(), "channels": C, "kw": KW,
             "xla_freqs": xla_freqs,
             "betas": BETAS, "train_config": TRAIN, "loop_config": LOOP,
@@ -196,6 +218,11 @@ def _case(work):
                            for _ in range(3)],
             "loop_eval": [rng.uniform(-1, 1, (B, S, C)).astype(np.float32)
                           for _ in range(2)],
+            "chunk_batches": rng.uniform(-1, 1, chunk_shape).astype(
+                np.float32),
+            "chunk_draws": _chunk_draws(chunk_shape[1:]),
+            "mdn_kw": MDN_KW, "mdn_params": _mdn_jax_setup()[1],
+            "mdn_batches": rng.normal(size=chunk_shape).astype(np.float32),
             "dataset": str(data)}
 
 
@@ -264,10 +291,13 @@ def _jax_step(case, data, model):
 KEY_BIAS_RTOL = 1e-3
 
 
-def _assert_leaves_close(ours, ref, rtol=1e-5, stepped=False):
+def _assert_leaves_close(ours, ref, rtol=1e-5, stepped=False,
+                         key_steps=None):
     """Each leaf of ``ours`` within ``rtol`` of the norm of ``ref``'s;
     ``stepped`` (params after Adam) holds each qkv bias (3, H, Dh) block
-    by block, the key block to KEY_BIAS_RTOL of the leaf's norm."""
+    by block, the key block to KEY_BIAS_RTOL of the leaf's norm, or, with
+    ``key_steps`` (K steps taken), each of its elements within 2·K·lr
+    (``KEY_STEPS_RULE``)."""
     ref = {k: np.asarray(v) for k, v in flatten(ref).items()}
     assert set(ours) == set(ref)
     for name, want in ref.items():
@@ -279,6 +309,11 @@ def _assert_leaves_close(ours, ref, rtol=1e-5, stepped=False):
                        KEY_BIAS_RTOL if part == "key" else rtol,
                        np.linalg.norm(want if part == "key" else want[i]))
                       for i, part in enumerate(("query", "key", "value"))]
+            if key_steps is not None:
+                key = blocks.pop(1)
+                worst = np.abs(key[1] - key[2]).max()
+                assert worst <= 2 * key_steps * TRAIN["learning_rate"], \
+                    (key[0], worst)
         for block, g, w, limit, scale in blocks:
             error = np.linalg.norm(g - w)
             assert error <= limit * scale, (block, error, scale)
@@ -306,6 +341,104 @@ def test_sharded_step_equals_jax(ranks, grid):
     assert bool(split) == (grid == "tp")
     for name in split:   # each rank holds the column block
         assert ours["shapes"][name][-1] * 2 == ours["params"][name].shape[-1]
+
+
+# After K Adam steps an attention key bias (true gradient 0) is a random
+# walk of +-lr steps on the sign of float noise, whatever the grid: JAX's
+# own chunks of the MDN on 8, 2 and 1 devices differ in its key block by
+# 1.2e-3 to 4.3e-3 of the bias's norm (up to 1.08e-3 an element), beyond
+# KEY_BIAS_RTOL, which holds one step. The MDN's chunks hold that block as
+# tests/test_torch_chunk.py holds K steps: every element within 2·K·lr
+# (the ranks read 2.8e-3 of the norm, 5.4e-4 an element, against JAX's
+# 2-device chunks). The flagship's key blocks meet KEY_BIAS_RTOL.
+KEY_STEPS_RULE = ("mdn",)
+# JAX's chunks are taken on the grid the ranks run, a data axis of 2 over
+# conftest's devices, as ``_jax_step`` takes the one step: six Adam steps
+# carry each grid's summation order into the elements whose gradient is
+# at float noise. Read on the CPU, DenseFiLM_0.Dense_3.kernel after the 6
+# steps: JAX's 8-device chunks against its 2-device ones 1.42e-5 of the
+# leaf's norm (against one device 1.47e-5; 2 against 1 device 5.4e-7);
+# the ranks against JAX's 2-device chunks 3.3e-6 (5.7e-6 the worst leaf).
+CHUNK_MESH = dict(data=2, model=1)
+
+
+def _jax_chunks(case, trainer_name):
+    """JAX's chunks over a CHUNK_MESH grid of conftest's devices, as its
+    chunked ``fit`` runs them (tests/test_parallel.py): the case's params
+    replicated, each (K, 8, ...) stack laid out by ``shard_chunk``.
+    Returns the state and the 6 losses."""
+    mesh = jmesh.make_mesh(jmesh.MeshConfig(**CHUNK_MESH),
+                           devices=jax.devices()[:CHUNK_MESH["data"]])
+    schedule = joptimizer.stepped_exponential_schedule(1e-3, 1, 0.9)
+    config = jtrainer.TrainConfig(**TRAIN)
+    if trainer_name == "mdn":
+        jmodel = jax_get_model("TransformerMDN", **MDN_KW)
+        state = jmdn.create_train_state(jax.random.PRNGKey(0), jmodel,
+                                        (1, S, C), config)
+        params, stack = case["mdn_params"], case["mdn_batches"]
+        chunk = jmdn.make_train_chunk(jmodel, schedule)
+    else:
+        jmodel = jax_get_model("TransformerDDPM", **KW)
+        state = jtrainer.create_train_state(
+            jax.random.PRNGKey(0), jmodel, (1, S, C), (1, 1, 1), config)
+        params, stack = case["params"], case["chunk_batches"]
+        chunk = jtrainer.make_train_chunk(
+            jmodel, jlosses.diffusion_loss, jschedules.noise_schedule(*BETAS),
+            True, schedule)
+    shardings = jmesh.shard_params(params, mesh)
+    params = jax.device_put(params, shardings)
+    state = state.replace(params=params, opt_state=state.tx.init(params))
+    if state.ema_params is not None:
+        state = state.replace(ema_params=jax.device_put(
+            case["params"], shardings))
+    losses = []
+    for seed, (lo, hi) in zip(CHUNK_KEYS, CHUNK_CUTS):
+        batches = jmesh.shard_chunk(jnp.asarray(stack[lo:hi]), mesh)
+        key = () if trainer_name == "mdn" else (jax.random.PRNGKey(seed),)
+        state, metrics = chunk(state, batches, *key)
+        losses.append(np.asarray(metrics["loss"]))
+    return state, np.concatenate(losses)
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "drawn", "mdn"])
+def test_data_axis_chunk_equals_the_per_step_ranks(ranks, trainer_name):
+    """On 2 ranks, a chunk of 4 and a chunk of 2 (each rank on its rows of
+    the global stack, the all-reduce between the step's segments) leave
+    the state, the losses and the generator bit-equal to the same ranks'
+    6 single steps: the diffusion trainer with JAX's draws replayed and
+    with the draws from its generator, and the MDN trainer."""
+    _, out, _ = ranks
+    steps = out["chunks"][f"{trainer_name}_steps"]
+    chunk = out["chunks"][f"{trainer_name}_chunk"]
+    assert steps["step"] == chunk["step"] == CHUNK_CUTS[-1][1]
+    assert torch.equal(steps["losses"], chunk["losses"])
+    assert len(steps["tensors"]) == len(chunk["tensors"])
+    for a, b in zip(steps["tensors"], chunk["tensors"]):
+        assert torch.equal(a, b)
+    assert torch.equal(steps["generator"], chunk["generator"])
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
+def test_data_axis_chunk_equals_jax(ranks, trainer_name):
+    """The 2 ranks' chunks against JAX's chunks over its mesh (CHUNK_MESH)
+    from the same params and global stacks, JAX's draws replayed: the
+    params (and the diffusion trainer's EMA) within 1e-5 of each leaf's
+    norm, the key biases within KEY_BIAS_RTOL, as
+    ``test_sharded_step_equals_jax`` holds one step (the MDN's key biases
+    by ``KEY_STEPS_RULE``); the 6 losses within 1e-5."""
+    case, out, _ = ranks
+    ours = out["chunks"][f"{trainer_name}_chunk"]
+    state, jax_losses = _jax_chunks(case, trainer_name)
+    assert int(state.step) == ours["step"]
+    key_steps = ours["step"] if trainer_name in KEY_STEPS_RULE else None
+    _assert_leaves_close(ours["params"], state.params, stepped=True,
+                         key_steps=key_steps)
+    if trainer_name == "mdn":
+        assert ours["ema"] is None
+    else:
+        _assert_leaves_close(ours["ema"], state.ema_params, stepped=True)
+    np.testing.assert_allclose(ours["losses"].numpy(), jax_losses,
+                               rtol=1e-5)
 
 
 def _one_rank_loop(case, max_steps, model_dir=None):
@@ -396,6 +529,20 @@ def test_clis_train_on_two_ranks_and_serve_on_one(ranks, monkeypatch):
         generated = np.asarray(pickle.load(f))
     # Inverse transformed through the slice to the 512-d latents.
     assert generated.shape == (4, 32, 512) and np.isfinite(generated).all()
+
+
+def test_train_ncsn_chunk_on_the_data_axis_equals_its_steps(ranks):
+    """``train_ncsn --scan_chunk=2`` on a data axis of 2 (a chunk of 2,
+    then one step cut at max_steps) ends bit-equal to the same run by
+    single steps: params, Adam moments and EMA."""
+    _, out, _ = ranks
+    runs = out["clis"]["ncsn_chunk"]
+    (step2, shape2, chunked), (step1, shape1, single) = runs[2], runs[1]
+    assert step2 == step1 == 3
+    assert shape2 == shape1 == {"data": 2, "model": 1}
+    assert len(chunked) == len(single)
+    for a, b in zip(chunked, single):
+        assert torch.equal(a, b)
 
 
 def test_dryrun_multichip_on_four_cpu_ranks():

@@ -4,8 +4,9 @@ A spawned rank imports this module to find its function, so it imports
 torch, numpy and the port only (the test file imports JAX). ``run`` reads
 the case the test wrote (``case.pkl``: the narrow flagship's params in the
 Flax layout, a global batch, the JAX package's draws, the loop's batches,
-a dataset for the CLIs), takes every step the test asks for in one
-process group and writes what rank 0 saw to ``out.pkl``.
+a dataset for the CLIs, the chunks' global stacks and draws), takes every
+step the test asks for in one process group and writes what rank 0 saw to
+``out.pkl``.
 """
 import os
 import pickle
@@ -19,6 +20,7 @@ from smd_tpu_torch.models import get_model
 from smd_tpu_torch.parallel import mesh as mesh_lib
 from smd_tpu_torch.training import diffusion as trainer
 from smd_tpu_torch.training import loop as loop_lib
+from smd_tpu_torch.training import mdn
 from smd_tpu_torch.utils.flax_params import load_flax_params
 
 
@@ -80,6 +82,73 @@ def _loop(case, model_dir, config, max_steps):
             "files": sorted(os.listdir(f"{model_dir}/ckpt"))}
 
 
+def _mdn_model(case):
+    model = get_model("TransformerMDN", device="cpu",
+                      data_channels=case["channels"], **case["mdn_kw"])
+    return load_flax_params(model, case["mdn_params"])
+
+
+def _state_out(state, losses):
+    """What a run left: every tensor a step writes, the losses, the step
+    count, and the whole params and EMA (the JAX comparison's)."""
+    saved = state.state_dict()
+    return {"tensors": [t.detach().clone() for t in state.tensors()],
+            "losses": torch.cat(losses), "step": state.step,
+            "params": _numpy(saved["params"]),
+            "ema": None if saved["ema_params"] is None else
+            _numpy(saved["ema_params"])}
+
+
+def _chunks(case):
+    """The diffusion trainer (the case's draws replayed, and drawn from
+    the state's generator) and the MDN trainer on a data axis of 2: the
+    global (6, batch, ...) stack as a chunk of 4 and a chunk of 2 (cut as
+    at a snapshot), each rank on its rows (``shard_chunk``), against the
+    same ranks' 6 per-step steps on their rows of each global batch
+    (``shard_batch``). The replicas are checked equal after each run."""
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=2, model=1))
+    sigmas = schedules.noise_schedule(*case["betas"])
+    config = trainer.TrainConfig(**case["train_config"])
+    out = {}
+    for trainer_name in ("replayed", "drawn", "mdn"):
+        stack = torch.from_numpy(case["mdn_batches" if trainer_name == "mdn"
+                                      else "chunk_batches"])
+        draws = None
+        if trainer_name == "replayed":
+            draws = tuple(torch.from_numpy(d) for d in case["chunk_draws"])
+        for how in ("steps", "chunk"):
+            if trainer_name == "mdn":
+                state = mdn.create_train_state(_mdn_model(case), config,
+                                               init=False, mesh=mesh)
+                step, chunk = mdn.make_train_step(mesh), \
+                    mdn.make_train_chunk(mesh)
+            else:
+                state = trainer.create_train_state(
+                    _model(case), config, seed=5, init=False, mesh=mesh)
+                step = trainer.make_train_step(losses.diffusion_loss, sigmas,
+                                               True, mesh)
+                chunk = trainer.make_train_chunk(losses.diffusion_loss,
+                                                 sigmas, True, mesh)
+            run = []
+            if how == "steps":
+                for i in range(len(stack)):
+                    kw = {} if draws is None else \
+                        {"draws": tuple(d[i] for d in draws)}
+                    batch = mesh_lib.shard_batch(stack[i], mesh)
+                    run.append(step(state, batch, **kw)[1]["loss"][None])
+            else:
+                rows = mesh_lib.shard_chunk(stack, mesh)
+                for lo, hi in ((0, 4), (4, len(stack))):
+                    kw = {} if draws is None else \
+                        {"draws": tuple(d[lo:hi] for d in draws)}
+                    run.append(chunk(state, rows[lo:hi], **kw)[1]["loss"])
+            mesh_lib.check_replicas_equal(state.tensors(), "state")
+            out[f"{trainer_name}_{how}"] = _state_out(state, run)
+            out[f"{trainer_name}_{how}"]["generator"] = \
+                state.generator.get_state()
+    return out
+
+
 def _clis(case, work):
     """``train_ncsn`` on a model axis of 2 and ``train_mdn`` on a data axis
     of 2, both in the running group (each rank reads its shard)."""
@@ -93,12 +162,23 @@ def _clis(case, work):
                             "--flagfile=configs/ddpm-mel-32seq-512.cfg",
                             f"--model_dir={work}/ncsn", "--num_sigmas=20",
                             "--model_parallelism=2", *common])
+    # The data axis through the chunk (2 steps, then 1 cut at max_steps)
+    # and through single steps, from the same seed.
+    chunked = {}
+    for scan_chunk in (2, 1):
+        state = train_ncsn.main([
+            "train_ncsn", "--flagfile=configs/ddpm-mel-32seq-512.cfg",
+            f"--model_dir={work}/ncsn-data-{scan_chunk}", "--num_sigmas=20",
+            f"--scan_chunk={scan_chunk}", *common])
+        chunked[scan_chunk] = (state.step, state.mesh.shape,
+                               [t.clone() for t in state.tensors()])
     mdn = train_mdn.main(["train_mdn",
                           "--flagfile=configs/mdn-mel-32seq-512.cfg",
                           f"--model_dir={work}/mdn", "--mdn_components=3",
                           *common])
     return {"ncsn": (ncsn.step, sorted(ncsn.specs), ncsn.mesh.shape),
-            "mdn": (mdn.step, sorted(mdn.specs), mdn.mesh.shape)}
+            "mdn": (mdn.step, sorted(mdn.specs), mdn.mesh.shape),
+            "ncsn_chunk": chunked}
 
 
 def xla_embedding(freqs):
@@ -136,6 +216,7 @@ def run(rank, world, port, work):
             # Trained 4 steps with checkpoints at 2 and 4, then resumed to 6.
             out[f"loop_{name}"] = [_loop(case, f"{work}/loop-{name}", config,
                                          steps) for steps in (4, 6)]
+        out["chunks"] = _chunks(case)
         out["clis"] = _clis(case, work)
         if rank == 0:
             with open(f"{work}/out.pkl", "wb") as f:
