@@ -205,8 +205,9 @@ Phases, one flushed line each with its seconds:
     samples), the float32 samples' FD beside; ``sample_ncsn
     --compute_metrics --compute_final_only`` on phase 10's checkpoint.
     (d) ``sample_audio`` on the artifact and 16 latents (4 pieces of 4
-    chunks) and the prior baseline: 8 WAVs written, none silent
-    (``--noinclude_plots`` where matplotlib does not import).
+    chunks) and the prior baseline (numpy's global generator seeded with
+    AUDIO_PRIOR_SEED): 8 WAVs written, none silent (``--noinclude_plots``
+    where matplotlib does not import).
 
 25. distributed training. (a) ``dryrun.entry()``, the flagship's forward
     on 8x32x42; ``train_ncsn.main`` on ``configs/ddpm-mel-32seq-512.cfg``
@@ -226,9 +227,24 @@ Phases, one flushed line each with its seconds:
     2 ranks: the float32 standard flagship split by columns; one forward
     on 64x32x42 against the unsplit model, the first gradient and the
     params after 3 steps (TP_FORWARD_RTOL, TP_RTOL); peak memory a rank.
-    (d) ``dryrun_multichip(4)``: a 2 x 2 grid. On one card the ranks share
-    it over gloo with CUDA tensors, and say so; with a card a rank, NCCL.
-    The film and attention launches of (b) join their records' counts.
+    Then the chunk on the model axis, for the float32 standard flagship
+    and the fused bf16 flagship at full width: 3 single steps, then the
+    same 3 steps as one chunk from the same start, capturing and then
+    replaying (the step captured in pieces cut at each collective: each
+    split Dense's all-gather, its input gradient's all-reduce in the
+    backward, the norm's all-reduce; ``utils/graphs.collective``), each
+    bit-equal to the single steps (params, Adam moments, EMA, losses,
+    generator), the replicated leaves equal across the group by checksum;
+    the fused chunk's film and attention launched inside the pieces (+4
+    and +6 a step, all tensor-core); a planted fault, the kept chunk
+    replayed with one recorded all-gather a no-op on every rank, must
+    differ; pieces and collectives a step, launches a rank, and wall ms a
+    step replayed, capturing and by single steps. (d)
+    ``dryrun_multichip(4)``: a 2 x 2 grid, 2 steps and a chunk of 2 from
+    the same start bit-equal to them on every rank. On one card the ranks
+    share it over gloo with CUDA tensors, and say so; with a card a rank,
+    NCCL. The film and attention launches of (b) and of (c)'s fused runs
+    join their records' counts.
 
 26. captured training chunks: five trainers at full width (the fused
     flagship at bf16 and the standard one in float32 on 64 x 32x42, the
@@ -3060,6 +3076,11 @@ METRIC_REQUESTS = 1000
 # decode a chunk to a rest (one-chunk pieces: 5 of 32 silent on the H100),
 # a piece of four rarely.
 AUDIO_PIECES, AUDIO_CHUNKS = 4, 4
+# sample_audio's prior baseline draws from numpy's global generator, as the
+# JAX script does; 24d seeds it so that every run decodes the same prior
+# pieces: the briefly trained codec decodes some draws of the prior to no
+# notes at all, which render as a silent WAV.
+AUDIO_PRIOR_SEED = 24
 
 
 class ScalarLog:
@@ -3351,6 +3372,7 @@ def phase_audio(tmp, smi, path):
     out = f"{tmp}/audio"
     plot_flag = "--include_plots" if plots.available() \
         else "--noinclude_plots"
+    np.random.seed(AUDIO_PRIOR_SEED)
     t0 = time.perf_counter()
     rendered = sample_audio.main([
         "sample_audio", f"--input={tmp}/audio-in", f"--output={out}",
@@ -3459,11 +3481,103 @@ def _tp_steps(state, loss_fn, batch, steps):
     return grads, state.state_dict()["params"]
 
 
+def _replicated(state):
+    """The state's tensors that every rank holds whole (params, moments,
+    EMA): under a model axis the split leaves' blocks differ by rank."""
+    whole = [n for n in state.params if n not in state.specs]
+    trees = (state.params, state.opt_state["mu"], state.opt_state["nu"],
+             state.ema_params or {})
+    return [tree[n].detach() for tree in trees for n in whole if n in tree]
+
+
+def _tp_chunk(make, mesh, betas, batch):
+    """25c's chunk on the model axis for the model ``make()`` builds:
+    DDP_TRAIN_STEPS single steps from a seeded start, then the same steps
+    as one chunk from the same start, capturing and then replaying, each
+    held to the single steps bit for bit (params, Adam moments, EMA,
+    losses, generator) with the replicated leaves checked equal across the
+    group by checksum; then the kept chunk replayed with one recorded
+    all-gather made a no-op (on every rank alike), which must differ.
+    Returns this rank's readings."""
+    import torch.distributed as dist
+
+    from smd_tpu_torch.diffusion import losses
+    from smd_tpu_torch.parallel import mesh as mesh_lib
+    from smd_tpu_torch.training import diffusion as trainer
+    from smd_tpu_torch.utils import graphs
+    state = trainer.create_train_state(make(), _ddp_config(), seed=0,
+                                       init=False, mesh=mesh)
+    start = [t.clone() for t in state.tensors()]
+    gen_start = state.generator.get_state()
+
+    def restore():
+        with torch.no_grad():
+            torch._foreach_copy_(state.tensors(), start)
+        state.generator.set_state(gen_start)
+        state.step = state.opt_state["count"] = 0
+
+    step = trainer.make_train_step(losses.diffusion_loss, betas, True, mesh)
+    step(state, batch)   # warm-up: kernels loaded
+    restore()
+    out = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ref_loss = torch.stack([step(state, batch)[1]["loss"]
+                            for _ in range(DDP_TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    out["steps_ms"] = 1e3 * (time.perf_counter() - t0) / DDP_TRAIN_STEPS
+    out["steps_counts"] = _counts()
+    ref = [t.clone() for t in state.tensors()]
+    ref_gen = state.generator.get_state()
+
+    def same(metrics):
+        return (all(torch.equal(a, b) for a, b in zip(state.tensors(), ref))
+                and torch.equal(metrics["loss"], ref_loss)
+                and torch.equal(state.generator.get_state(), ref_gen))
+
+    chunk = trainer.make_train_chunk(losses.diffusion_loss, betas, True,
+                                     mesh)
+    stack = batch.expand(DDP_TRAIN_STEPS, *batch.shape)
+    for how in ("capture", "replay"):
+        restore()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, metrics = chunk(state, stack)
+        torch.cuda.synchronize()
+        out[f"{how}_ms"] = 1e3 * (time.perf_counter() - t0) / \
+            DDP_TRAIN_STEPS
+        out[f"{how}_counts"] = _counts()
+        out[f"{how}_tc"] = _side_counts()[0]
+        out[f"{how}_equal"] = same(metrics)
+        mesh_lib.check_replicas_equal(_replicated(state),
+                                      f"replicated leaves after the {how}")
+    pieces, points, _ = chunk._chunk._last.graphs[None]
+    kinds = [getattr(p.fn, "func", None) for p in points]
+    out.update(pieces=len(pieces), collectives=len(points),
+               gathers=kinds.count(dist.all_gather),
+               reduces=kinds.count(dist.all_reduce),
+               split_dense=len({n.rsplit(".", 1)[0] for n in state.specs}))
+    j = kinds.index(dist.all_gather)
+    kept = points[j]
+    points[j] = graphs.Point(lambda: None, kept.buffers)
+    restore()
+    try:
+        _, metrics = chunk(state, stack)
+        out["fault_caught"] = not same(metrics)
+    finally:
+        points[j] = kept
+    chunk.close()
+    return out
+
+
 def _ddp_rank(rank, n, backend, port, out_dir):
     """One rank of 25b and 25c: the fused flagship on the data axis, then
-    the float32 standard flagship on the model axis. Each rank writes its
-    launch counts, losses, times and memory to ``out_dir/ranks-{rank}.pt``;
-    rank 0 adds its gradients, params and forward."""
+    the float32 standard flagship on the model axis, then the chunk on the
+    model axis (``_tp_chunk``). Each rank writes its launch counts,
+    losses, times and memory to ``out_dir/ranks-{rank}.pt``; rank 0 adds
+    its gradients, params and forward."""
     import torch.distributed as dist
 
     from smd_tpu_torch.diffusion import losses, schedules
@@ -3566,6 +3680,12 @@ def _ddp_rank(rank, n, backend, port, out_dir):
         out["tp_split"] = len(state.specs)
         out["tp_grads"] = {k: v.cpu() for k, v in grads.items()}
         out["tp_params"] = {k: v.cpu() for k, v in params.items()}
+        del state, grads, params
+        torch.cuda.empty_cache()
+        # 25c: the chunk on the model axis, float32 and fused bf16.
+        for name, make in (("f32", _standard_f32), ("bf16", _fused_bf16)):
+            out[f"tpc_{name}"] = _tp_chunk(make, mesh, betas, batch)
+            torch.cuda.empty_cache()
         if rank:
             out = {k: v for k, v in out.items() if not k.startswith(
                 ("dp_grads", "dp_params", "tp_forward", "tp_grads",
@@ -3685,8 +3805,9 @@ def _one_rank_ddp(betas, batch):
 
 def phase_ddp_ranks(smi):
     """25b-25c: two ranks on the data axis (the fused flagship at bf16)
-    and on the model axis (the float32 standard flagship). Returns the
-    ranks' launch counts."""
+    and on the model axis (the float32 standard flagship; the chunk of it
+    and of the fused flagship at bf16). Returns the ranks' launch
+    counts."""
     from smd_tpu_torch import dryrun
     from smd_tpu_torch.diffusion import losses, schedules
     from smd_tpu_torch.training import diffusion as trainer
@@ -3821,13 +3942,70 @@ def phase_ddp_ranks(smi):
         f"ranks spawned and run in {spawn_s:.1f} s; on {smi}")
     del state, model
     torch.cuda.empty_cache()
-    return tuple(sum(c) for c in zip(*(got[k] for got in ranks
-                                       for k in ("dp_counts",
-                                                 "chunk_counts"))))
+    for name, what, layout in (("f32", "standard flagship float32",
+                                "standard"),
+                               ("bf16", "fused flagship bf16", "fused")):
+        got = [r[f"tpc_{name}"] for r in ranks]
+        per_step = per_call_launches(layout)
+        expected = {
+            "steps": tuple(DDP_TRAIN_STEPS * k for k in per_step),
+            "capture": tuple((DDP_TRAIN_STEPS + graphs.WARMUP_STEPS) * k
+                             for k in per_step),
+            "replay": tuple(DDP_TRAIN_STEPS * k for k in per_step)}
+        for r, g in enumerate(got):
+            for how in ("capture", "replay"):
+                if not g[f"{how}_equal"]:
+                    fail(f"model-axis rank {r}, {what}: the {how} chunk of "
+                         f"{DDP_TRAIN_STEPS} steps differs from its single "
+                         "steps (params, moments, EMA, losses or generator)")
+                if g[f"{how}_counts"] != expected[how] or \
+                        g[f"{how}_tc"] != expected[how][0]:
+                    fail(f"model-axis rank {r}, {what}: the {how} chunk "
+                         f"launched (attention, film, w8a8, flash) "
+                         f"{g[f'{how}_counts']} ({g[f'{how}_tc']} "
+                         f"tensor-core), expected {expected[how]}")
+            if g["steps_counts"] != expected["steps"]:
+                fail(f"model-axis rank {r}, {what}: the single steps "
+                     f"launched {g['steps_counts']}, expected "
+                     f"{expected['steps']}")
+            if not g["fault_caught"]:
+                fail(f"model-axis rank {r}, {what}: a replay with one "
+                     "all-gather skipped was not caught: the chunk does not "
+                     "read the collectives run between its pieces")
+            if g["collectives"] != g["gathers"] + g["reduces"] or \
+                    g["gathers"] != g["split_dense"] or \
+                    g["pieces"] != g["collectives"] + 1:
+                fail(f"model-axis rank {r}, {what}: {g['pieces']} pieces, "
+                     f"{g['collectives']} collectives ({g['gathers']} "
+                     f"all-gathers, {g['reduces']} all-reduces) for "
+                     f"{g['split_dense']} split Dense layers")
+        g = got[0]
+        say(f"25c the chunk on the model axis, {what} ({where}; "
+            f"{g['split_dense']} split Dense layers): {DDP_TRAIN_STEPS} "
+            f"steps as one chunk from the same start, {g['pieces']} "
+            f"captured pieces and {g['collectives']} collectives a step "
+            f"({g['gathers']} all-gathers, {g['reduces']} all-reduces, the "
+            "norm's among them) eager between them: params, Adam moments, "
+            "EMA, losses and generator bit-equal to the single steps, "
+            "capturing and replaying, replicated leaves equal (checksums); "
+            f"launches a rank (attention, film, w8a8, flash) "
+            f"{[x['replay_counts'] for x in got]} replayed, "
+            f"{[x['capture_counts'] for x in got]} capturing "
+            f"({graphs.WARMUP_STEPS} warm-up steps); one all-gather "
+            f"skipped at replay caught; wall ms/step "
+            f"{[round(x['replay_ms'], 2) for x in got]} replayed, "
+            f"{[round(x['capture_ms'], 2) for x in got]} the capturing "
+            f"chunk, {[round(x['steps_ms'], 2) for x in got]} by single "
+            f"steps; on {smi}")
+    return tuple(sum(c) for c in zip(
+        *(got[k] for got in ranks for k in ("dp_counts", "chunk_counts")),
+        *(got["tpc_bf16"][k] for got in ranks
+          for k in ("steps_counts", "capture_counts", "replay_counts"))))
 
 
 def phase_dryrun_multichip(smi):
-    """25d: ``dryrun_multichip(4)``: 4 ranks, a 2 x 2 grid."""
+    """25d: ``dryrun_multichip(4)``: 4 ranks, a 2 x 2 grid, 2 steps and a
+    chunk of 2 from the same start bit-equal to them on every rank."""
     from smd_tpu_torch import dryrun
     t0 = time.perf_counter()
     result = dryrun.dryrun_multichip(4)
@@ -4044,17 +4222,17 @@ def _chunk_profile(trainer, snap, captured):
 def _stale_slot():
     """A planted fault: every replay of a chunk reads slot 0's batch."""
     from smd_tpu_torch.utils import graphs
-    body = graphs._Slots.body
+    run = graphs._Slots.run
 
     def stale(self, step, variant=None):
-        return body(self, lambda slot: step(
+        return run(self, lambda slot: step(
             {**slot, "batch": self.inputs["batch"][0]}), variant)
 
-    graphs._Slots.body = stale
+    graphs._Slots.run = stale
     try:
         yield
     finally:
-        graphs._Slots.body = body
+        graphs._Slots.run = run
 
 
 def phase_chunks(smi, modes=CHUNK_MODES):

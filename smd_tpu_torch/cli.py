@@ -229,10 +229,10 @@ def define_common_flags():
                      "as many eager steps; snapshots, checkpoints and "
                      "max_steps land where the per-step loop puts them, and "
                      "logging is by chunk. 1 = one eager step at a time; "
-                     "under torchrun each step's gradient all-reduce runs "
-                     "between two captured segments; more than 1 raises "
-                     "under --model_parallelism > 1, and with --remat on "
-                     "the card.")
+                     "under torchrun, on any --model_parallelism, each of "
+                     "the step's collectives runs eagerly between two of "
+                     "its captured graphs; more than 1 raises with --remat "
+                     "on the card.")
     F.DEFINE_boolean("mixed_precision", False,
                      "bfloat16 compute with fp32 params.")
     F.DEFINE_boolean("adam_m_bf16", False,

@@ -2,8 +2,11 @@
 ``__graft_entry__.py``).
 
 ``entry()`` is the full-width flagship's forward on one card with its
-example arguments; ``dryrun_multichip(n)`` runs one whole train step over
-n ranks on a (data, model) mesh. Each rank is a process
+example arguments; ``dryrun_multichip(n)`` runs two whole train steps
+over n ranks on a (data, model) mesh, then the same two steps as one chunk
+(``make_train_chunk``: on the card captured in CUDA graphs, each
+collective eager between two of them) from the same start, which must
+leave every rank's state bit-equal to its steps. Each rank is a process
 (``torch.multiprocessing.spawn``) in a process group of its own address:
 with a card for each rank, NCCL; with fewer cards than ranks the ranks
 share the cards and the group is gloo over CUDA tensors, and the line
@@ -59,8 +62,10 @@ def _backend(device: torch.device, n: int):
 
 
 def _dryrun_rank(rank, n, device_type, backend, port, out_dir):
-    """One rank of ``dryrun_multichip``: the tiny flagship's train step on
-    this rank's rows; writes its loss to ``out_dir/{rank}.json``."""
+    """One rank of ``dryrun_multichip``: the tiny flagship's 2 train steps
+    on this rank's rows, then a chunk of 2 from the same start; writes its
+    first loss and whether the chunk equals the steps to
+    ``out_dir/{rank}.json``."""
     from smd_tpu_torch.diffusion import losses, schedules
     from smd_tpu_torch.models import get_model
     from smd_tpu_torch.parallel import mesh as mesh_lib
@@ -81,23 +86,41 @@ def _dryrun_rank(rank, n, device_type, backend, port, out_dir):
                                                       model=model_axis))
         batch_size = 2 * mesh.data
         seq_len, channels, mlp_dims = 8, 16, 64
-        model = get_model("TransformerDDPM", device=device,
-                          data_channels=channels, num_layers=2, num_heads=4,
-                          num_mlp_layers=1, mlp_dims=mlp_dims)
         config = trainer.TrainConfig(loss="ddpm", batch_size=batch_size)
-        state = trainer.create_train_state(model, config, seed=0, mesh=mesh)
+
+        def fresh():
+            model = get_model("TransformerDDPM", device=device,
+                              data_channels=channels, num_layers=2,
+                              num_heads=4, num_mlp_layers=1,
+                              mlp_dims=mlp_dims)
+            return trainer.create_train_state(model, config, seed=0,
+                                              mesh=mesh)
+
         betas = schedules.noise_schedule(1e-6, 0.01, 10, "linear")
         step = trainer.make_train_step(losses.diffusion_loss, betas, True,
                                        mesh)
-        batch = torch.randn((batch_size, seq_len, channels),
-                            generator=torch.Generator().manual_seed(1)) * 0.5
-        batch = mesh_lib.shard_batch(batch, mesh).to(device)
-        state, metrics = step(state, batch)
-        loss = float(metrics["loss"])
+        gen = torch.Generator().manual_seed(1)
+        batches = torch.stack([torch.randn((batch_size, seq_len, channels),
+                                           generator=gen) * 0.5
+                               for _ in range(2)])
+        rows = mesh_lib.shard_chunk(batches, mesh).to(device)
+        state = fresh()
+        step_losses = [step(state, batch)[1]["loss"] for batch in rows]
+        chunked = fresh()
+        chunk = trainer.make_train_chunk(losses.diffusion_loss, betas, True,
+                                         mesh)
+        _, metrics = chunk(chunked, rows)
+        chunk_equal = torch.equal(metrics["loss"],
+                                  torch.stack(step_losses)) and all(
+            torch.equal(a, b) for a, b in zip(chunked.tensors(),
+                                              state.tensors()))
+        chunk.close()
+        loss = float(step_losses[0])
         with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
             json.dump({"loss": loss, "data": mesh.data,
                        "model": mesh.model, "split": len(state.specs),
-                       "device": str(device)}, f)
+                       "device": str(device), "chunk_equal": chunk_equal},
+                      f)
         if not math.isfinite(loss):
             raise FloatingPointError(f"rank {rank}: loss {loss}")
     finally:
@@ -105,10 +128,12 @@ def _dryrun_rank(rank, n, device_type, backend, port, out_dir):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """One full train step over ``n_devices`` ranks on a (data x model)
-    mesh, model 2 when n is even and at least 4; tiny shapes, real
-    groups. Asserts a finite loss, equal on every rank; prints one line and
-    returns what it printed as a dict."""
+    """Two full train steps over ``n_devices`` ranks on a (data x model)
+    mesh, model 2 when n is even and at least 4, and the same steps as a
+    chunk of 2; tiny shapes, real groups. Asserts a finite loss, equal on
+    every rank, and on every rank a chunk bit-equal to its steps (params,
+    Adam moments, EMA, losses); prints one line and returns what it
+    printed as a dict."""
     device = resolve_device(device)
     backend, cards = _backend(device, n_devices)
     port = free_port()
@@ -124,6 +149,10 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     losses = {r["loss"] for r in ranks}
     if len(losses) != 1:
         raise AssertionError(f"the ranks' losses differ: {sorted(losses)}")
+    unequal = [r for r, got in enumerate(ranks) if not got["chunk_equal"]]
+    if unequal:
+        raise AssertionError(f"on ranks {unequal} the chunk of 2 differs "
+                             "from the 2 single steps")
     shared = device.type == "cuda" and cards < n_devices
     result = {"ranks": n_devices, "data": ranks[0]["data"],
               "model": ranks[0]["model"], "backend": backend,
@@ -136,5 +165,6 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     print(f"dryrun_multichip({n_devices}) OK: mesh {result['data']}x"
           f"{result['model']}, {backend} ({where}), "
           f"{result['split_params']} parameters split a rank, loss "
-          f"{result['loss']:.6f}", flush=True)
+          f"{result['loss']:.6f}; a chunk of 2 bit-equal to its 2 single "
+          "steps on every rank", flush=True)
     return result

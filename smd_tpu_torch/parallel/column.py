@@ -15,13 +15,21 @@ JAX package's sharded step does. The backward:
 ``torch.distributed.nn.functional.all_gather``'s backward reduce-scatters,
 which would multiply the gradient by the group's size; hence these two
 functions. The Dense keeps its Flax name and parameter names; the pair is
-attached as forward hooks.
+attached as forward hooks. Each collective goes through
+``graphs.collective`` with its buffers made before it, so a captured step
+(``utils/graphs.py``) runs it eagerly between two of its graphs: the
+gather's blocks are allocated before the cut and joined after it, the
+reduce's gradient cloned before it and summed in place in it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from smd_tpu_torch.utils import graphs
 
 __all__ = ["make_column_parallel"]
 
@@ -37,7 +45,8 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
+        graphs.collective(functools.partial(dist.all_reduce, grad,
+                                            group=ctx.group), grad)
         return grad, None
 
 
@@ -48,8 +57,10 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, group, index, size):
         ctx.index, ctx.size = index, size
+        block = y.contiguous()
         parts = [torch.empty_like(y) for _ in range(size)]
-        dist.all_gather(parts, y.contiguous(), group=group)
+        graphs.collective(functools.partial(dist.all_gather, parts, block,
+                                            group=group), block, *parts)
         return torch.cat(parts, dim=-1)
 
     @staticmethod

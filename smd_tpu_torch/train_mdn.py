@@ -10,7 +10,8 @@ Reads the same layered ``configs/mdn-*.cfg`` flagfiles as the JAX package's
 Checkpoints go to ``MODEL_DIR/ckpt/{step}.pt``; a rerun resumes, and
 ``python -m smd_tpu_torch.sample_mdn`` serves the latest. Under
 ``torchrun`` it trains across processes as ``train_ncsn`` does
-(``--batch_size`` global, ``--model_parallelism`` the model axis).
+(``--batch_size`` global, ``--model_parallelism`` the model axis,
+``--scan_chunk`` under any grid).
 """
 from __future__ import annotations
 

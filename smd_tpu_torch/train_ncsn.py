@@ -26,8 +26,11 @@ Across processes, under ``torchrun --nproc_per_node=N -m
 smd_tpu_torch.train_ncsn ...`` (one card a rank, NCCL; gloo with
 ``--device=cpu``): ``--batch_size`` is the global batch, each data shard
 reads its share, and ``--model_parallelism=M`` splits the Dense layers over
-model groups of M ranks. Rank 0 writes the checkpoints, summaries and
-snapshots; a checkpoint restores under any grid and serves on one card.
+model groups of M ranks; ``--scan_chunk=K`` takes the steps K at a time
+under any grid, each of a step's collectives eager between two of its
+captured graphs (``utils/graphs.py``). Rank 0 writes the checkpoints,
+summaries and snapshots; a checkpoint restores under any grid and serves
+on one card.
 ``--distill`` runs on one rank.
 """
 from __future__ import annotations

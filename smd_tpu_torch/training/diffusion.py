@@ -188,14 +188,12 @@ def make_train_chunk(objective, sigmas, continuous_noise: bool, mesh=None):
     graph once and replayed K times, on the CPU it runs K times. The steps
     draw from ``state.generator`` as K eager steps would, or replay
     ``draws`` (a tuple of (K, ...) stacks of the objective's draws). Under
-    a ``mesh`` with a data axis alone, ``batches`` is this rank's rows of
-    each step's global batch (``mesh.shard_chunk``) and ``draws`` the
-    global batch's, as for ``make_train_step``; each step's gradient
-    all-reduce runs eagerly between its two captured segments
-    (``TrainState.descent``). A model axis above 1 raises
-    (``loop.MESH_CHUNK``): its collectives sit inside the forward pass and
-    the norm. ``remat`` cannot be captured either."""
-    loop_lib.check_chunk_mesh(mesh)
+    any ``mesh``, ``batches`` is this rank's rows of each step's global
+    batch (``mesh.shard_chunk``; the ranks of a model group take the same
+    rows) and ``draws`` the global batch's, as for ``make_train_step``;
+    each of the step's collectives runs eagerly between two of its
+    captured graphs (``graphs.TrainChunk``). ``remat`` cannot be
+    captured."""
     loss_fn = make_loss_fn(objective, sigmas, continuous_noise, mesh)
     return graphs.TrainChunk(
         lambda state, batch, draws: loss_fn(state.model, batch,

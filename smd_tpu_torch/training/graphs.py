@@ -22,13 +22,17 @@ kernels.
   ``state.tensors`` names and the generator's state).
 - **The generator.** The state's own CUDA generator is registered with the
   graph, so a replay draws what the next eager step would draw.
-- **The data axis.** Under a mesh with a data axis the step's gradient
-  all-reduce runs between two captured segments (``TrainState.descent``
-  yields the flat buffer of the gradients and the loss): the forward, the
-  backward and the buffer in one graph, the all-reduce eagerly on the data
-  group with whichever backend it has, then the mean, the norm, clipping,
-  Adam and the EMA in a second graph; the same arithmetic as the per-step
-  run. A model axis above 1 raises (``loop.MESH_CHUNK``).
+- **Across ranks.** Under any (data, model) mesh every collective of the
+  step goes through ``utils/graphs.collective``, which cuts the capture
+  there: the step is captured as a list of graphs and each collective runs
+  eagerly between two of them, on its group, with whichever backend it
+  has. On a model axis those are each column-parallel Dense's all-gather
+  in the forward and its input gradient's all-reduce in the backward
+  (``parallel/column.py``; the backward's cuts fall on autograd's device
+  thread) and the norm's all-reduce; on a data axis the flat all-reduce
+  of the gradients and the loss (``TrainState.gradients``). The same
+  arithmetic as the per-step run: a chunk is bit-equal to the ranks'
+  single steps.
 - **Things that cannot be captured** raise with their name: ``remat``
   (``torch.utils.checkpoint`` saves the generator's state), autograd's
   anomaly mode (``debug_nans``: the loop checks the chunk's losses instead,
@@ -96,7 +100,7 @@ class TrainChunk:
         draws = tuple(slot[n] for n in sorted(slot)
                       if n.startswith("draw")) or None
         loss = self.loss_fn(state, slot["batch"], draws)
-        return state.descent(loss, hyper=slot)
+        return state.descend(loss, hyper=slot)
 
     def close(self):
         if self._chunk is not None:

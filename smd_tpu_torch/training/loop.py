@@ -13,10 +13,14 @@ on the CPU K eager steps). Chunks are cut short where a snapshot or
 per-step loop puts them; the loop logs at chunk granularity (the row of the
 step that crosses a logging boundary), and ``debug_nans`` checks the
 chunk's (K,) losses in place of autograd's anomaly mode, which a graph
-cannot capture. Under a mesh whose model axis is 1 the chunk runs on every
-rank, each on its rows of the K step batches (the data iterables yield
-them, as for a step), the gradients' all-reduce between the captured
-segments of each step; a model axis above 1 raises (``MESH_CHUNK``).
+cannot capture. Under a mesh the chunk runs on every rank, each on its
+rows of the K step batches (the data iterables yield them, as for a step;
+the ranks of a model group share theirs), every collective of the step
+(the gradients' all-reduce over the data group, the column-parallel
+gathers and reduces and the norm's all-reduce over the model group)
+eagerly between the step's captured graphs (``utils/graphs.py``
+``collective``). Every rank takes the same chunks in lockstep: the
+warm-up steps before a capture run the collectives.
 
 Under a ``parallel.mesh.Mesh`` every rank runs the loop in step: the eval
 loss and its example count are summed over the data group, so early
@@ -42,25 +46,9 @@ from smd_tpu_torch.utils import checkpoints as ckpt_lib
 from smd_tpu_torch.utils import logging as log_lib
 from smd_tpu_torch.utils import profiling
 
-__all__ = ["evaluate", "run_loop", "device_prefetch", "check_chunk_mesh"]
+__all__ = ["evaluate", "run_loop", "device_prefetch"]
 
 log = logging.getLogger("smd_tpu_torch")
-
-MESH_CHUNK = ("scan_chunk > 1 under a model axis of {model} is not ported: "
-              "that axis's collectives run inside the forward pass (the "
-              "column-parallel all-gathers) and inside the gradients' "
-              "global norm, in the middle of the captured step, where gloo "
-              "cannot run them and only NCCL could be captured; train with "
-              "scan_chunk=1 or a model axis of 1")
-
-
-def check_chunk_mesh(mesh):
-    """Raise unless a chunk can run under ``mesh``: one rank, or a data
-    axis alone (its all-reduce runs eagerly between the step's captured
-    segments, ``TrainState.descent``)."""
-    if mesh is not None and mesh.model > 1:
-        raise ValueError(MESH_CHUNK.format(model=mesh.model))
-
 
 def device_prefetch(iterator, device, size: int = 2):
     """Keep ``size`` batches in flight on ``device`` ahead of compute.
@@ -130,8 +118,6 @@ def run_loop(state,
     """
     scan_chunk = getattr(config, "scan_chunk", 1)
     use_chunk = train_chunk is not None and scan_chunk > 1
-    if use_chunk:
-        check_chunk_mesh(mesh)
     debug_nans = getattr(config, "debug_nans", False)
     if debug_nans and not use_chunk:
         torch.autograd.set_detect_anomaly(True)

@@ -17,10 +17,9 @@ parameters split over the model axis): ``descend`` averages the gradients
 (and the loss) over the data group through one flattened buffer, and the
 global norm sums the split leaves' squares over the model group, counting
 each replicated leaf once; clipping, Adam and the EMA then run alike on
-every rank. ``descent`` is the same step as a generator that yields the
-flat buffer and its all-reduce at the point where it runs, so a captured
-step (``utils/graphs.py``) can run the collective eagerly between two
-graphs; ``descend`` runs it straight through, with the same arithmetic.
+every rank. Both all-reduces go through ``graphs.collective``, as the
+column-parallel layers' do (``parallel/column.py``), so a captured step
+(``utils/graphs.py``) runs each eagerly between two of its graphs.
 ``state_dict`` gathers the split leaves whole (a collective: every rank
 calls it) and ``load_state_dict`` keeps this rank's blocks, so a
 checkpoint restores under any grid and serves on one card.
@@ -28,6 +27,7 @@ checkpoint restores under any grid and serves on one card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -123,15 +123,7 @@ class TrainState:
         metrics ``loss``, ``grad`` (device tensors) and ``lr`` (a float, or
         ``hyper``'s tensor). Under a data axis the gradients and the loss
         are the data group's means."""
-        return graphs.finish(self.descent(loss, hyper))
-
-    def descent(self, loss: torch.Tensor,
-                hyper: Optional[Dict[str, torch.Tensor]] = None):
-        """``descend`` as a generator: under a data axis it yields
-        (the flat buffer of the gradients and the loss, its all-reduce over
-        the data group) between the backward pass and the rest of the step;
-        returns the metrics."""
-        grads, loss = yield from self._gradients(loss)
+        grads, loss = self.gradients(loss)
         grad_norm = self.global_norm(grads)
         lr = self.apply_gradients(grads, grad_norm, hyper)
         return {"loss": loss, "grad": grad_norm, "lr": lr}
@@ -146,9 +138,6 @@ class TrainState:
         axis both are the data group's means: ``mesh.pack``, summed over
         the group, ``mesh.unpack``. A split parameter's gradient is its
         block's."""
-        return graphs.finish(self._gradients(loss))
-
-    def _gradients(self, loss: torch.Tensor):
         params = self.params
         grads = torch.autograd.grad(loss, list(params.values()))
         loss = loss.detach()
@@ -156,12 +145,11 @@ class TrainState:
         if mesh is not None and mesh.data > 1:
             tensors = [*grads, loss]
             flat = mesh_lib.pack(tensors)
-            yield flat, self._all_reduce
+            graphs.collective(functools.partial(
+                torch.distributed.all_reduce, flat, group=mesh.data_group),
+                flat)
             *grads, loss = mesh_lib.unpack(flat, tensors, mesh.data)
         return dict(zip(params, grads)), loss
-
-    def _all_reduce(self, flat: torch.Tensor):
-        torch.distributed.all_reduce(flat, group=self.mesh.data_group)
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole gradients, in float32: the split
@@ -174,7 +162,9 @@ class TrainState:
             (split if name in self.specs else whole).append(norm)
         sharded = torch.stack(split).square().sum()
         if self.specs:
-            torch.distributed.all_reduce(sharded, group=self.mesh.model_group)
+            graphs.collective(functools.partial(
+                torch.distributed.all_reduce, sharded,
+                group=self.mesh.model_group), sharded)
         return torch.sqrt(torch.stack(whole).square().sum() + sharded)
 
     @property

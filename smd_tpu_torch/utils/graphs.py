@@ -37,13 +37,20 @@ a step where the eager step launches hundreds to thousands of kernels.
 - **Launch counters.** A capture launches nothing: the kernels' wrapper
   counts (``ops``) that a capture raised are taken back and added once at
   each replay. The warm-up's launches are real and stay counted.
-- **A collective between segments.** A step may return a generator in
-  place of its metrics: it yields ``(buffer, fn)`` where ``fn(buffer)``
-  must run eagerly (a ``torch.distributed`` all-reduce, which gloo cannot
-  run inside a capture) and returns the metrics. Each stretch between two
-  yields is a graph of its own, captured in order into the one pool; a
-  replay runs graph, ``fn(buffer)``, graph, ... The warm-up steps call
-  ``fn`` too, so every rank of a group runs them in lockstep.
+- **Collectives cut the capture.** Every ``torch.distributed`` call on a
+  step's path goes through ``collective(fn, *buffers)``: outside a capture
+  it calls ``fn()`` at once (the CPU, eager steps, the warm-up, so every
+  rank of a group runs them in lockstep); inside one it ends the running
+  graph, records ``(fn, buffers)`` (the buffers stay alive, so their
+  memory in the pool is never handed out again) and begins the next graph
+  in the same pool, ``fn`` not run. A step is then a list of graphs, each
+  captured in turn, and a replay runs graph 0, ``fn`` 0, graph 1, ...
+  (gloo cannot run inside a capture, and NCCL refuses two ranks on one
+  card). A cut may fall on autograd's device thread (a collective in an
+  ``autograd.Function``'s backward): the graphs are captured in CUDA's
+  relaxed mode, which lets a thread end a capture that another began, and
+  that thread's current stream is the capture stream, where the forward
+  ran.
 - **Failures raise.** A mode named in ``unsupported``, autograd's anomaly
   mode, a state tensor rebound since the capture, or a capture, replay or
   collective that fails raises with the step's label; nothing falls back to
@@ -66,16 +73,16 @@ its graphs at its second call however many sampler chains ran between.
 from __future__ import annotations
 
 import contextlib
-import inspect
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, List, Optional, Sequence
+from typing import (Callable, Dict, Hashable, List, NamedTuple,
+                    Optional, Sequence)
 
 import numpy as np
 import torch
 
 __all__ = ["StepChunk", "WARMUP_STEPS", "launch_counters", "eager",
-           "zeros", "chain", "release", "finish", "MAX_CHAINS",
-           "MAX_CODEC_CHAINS"]
+           "zeros", "chain", "release", "collective", "Point",
+           "MAX_CHAINS", "MAX_CODEC_CHAINS"]
 
 WARMUP_STEPS = 2
 MAX_CHAINS = 4
@@ -86,6 +93,9 @@ MAX_CODEC_CHAINS = 5
 # Eager warm-up steps run before captures since the module was loaded.
 warmup_steps = 0
 _EAGER = False
+# The capture under way (a ``_Capture``), read by ``collective`` on any
+# thread: autograd runs a backward's CUDA nodes on a thread of its own.
+_CAPTURE = None
 
 
 @contextlib.contextmanager
@@ -123,19 +133,52 @@ def _add_counters(deltas):
         setattr(obj, attr, getattr(obj, attr) + delta)
 
 
-def finish(out):
-    """A step's metrics: ``out`` itself, or, where the step returned a
-    generator (a step with a collective point), the generator run to its
-    end, each yielded ``fn(buffer)`` called in turn."""
-    if not inspect.isgenerator(out):
-        return out
-    try:
-        point = next(out)
-        while True:
-            point[1](point[0])
-            point = next(out)
-    except StopIteration as stop:
-        return stop.value
+class Point(NamedTuple):
+    """A collective recorded at a cut: ``fn()`` runs it on ``buffers``."""
+    fn: Callable[[], object]
+    buffers: tuple
+
+
+def collective(fn: Callable[[], object], *buffers: torch.Tensor) -> None:
+    """Run ``fn()``, a ``torch.distributed`` collective on ``buffers`` in
+    place, where a step reaches it: at once, or, inside a ``StepChunk``'s
+    capture, between two of the step's graphs at every replay (see the
+    module's docstring). ``buffers`` names every tensor ``fn`` reads or
+    writes; each must have been made before the call."""
+    capture = _CAPTURE
+    if capture is None:
+        fn()
+    else:
+        capture.cut(Point(fn, buffers))
+
+
+class _Capture:
+    """One step's graphs as they are captured into ``pool``, and the
+    points between them."""
+
+    def __init__(self, pool, generator):
+        self.pool = pool
+        self.generator = generator
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.points: List[Point] = []
+        self.open = False
+
+    def begin(self):
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        self.graphs.append(graph)
+        graph.capture_begin(pool=self.pool, capture_error_mode="relaxed")
+        self.open = True
+
+    def end(self):
+        self.open = False
+        self.graphs[-1].capture_end()
+
+    def cut(self, point: Point):
+        self.end()
+        self.points.append(point)
+        self.begin()
 
 
 def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -173,7 +216,7 @@ class _Slots:
                                   dtype=torch.float32, device=device)
         self.index = torch.zeros((1,), dtype=torch.long, device=device)
         self.rows: Optional[Dict[str, torch.Tensor]] = None
-        # variant -> (graphs, collective points between them, deltas)
+        # variant -> (graphs, the points between them, counter deltas)
         self.graphs: Dict[Hashable, tuple] = {}
         self.pool = None
         self.pointers = None
@@ -192,12 +235,11 @@ class _Slots:
             self.tables[:k].copy_(table, non_blocking=True)
         self.index.zero_()
 
-    def body(self, step, variant=None):
-        """One step on slot ``index``, as a generator: it yields the
-        step's collective points (``(buffer, fn)``, see ``StepChunk``),
-        then writes the metrics at ``index`` and advances the index. The
-        step sees each input's row, each table's 0-d value, the per-call
-        buffers, the index as ``step`` and the step's ``variant``."""
+    def run(self, step, variant=None):
+        """One step on slot ``index``: the step sees each input's row, each
+        table's 0-d value, the per-call buffers, the index as ``step`` and
+        the step's ``variant``; its metrics are written at ``index`` and
+        the index advances."""
         i = self.index
         slot = {n: buf.index_select(0, i)[0]
                 for n, buf in self.inputs.items()}
@@ -209,8 +251,6 @@ class _Slots:
         if variant is not None:
             slot["variant"] = variant
         metrics = step(slot)
-        if inspect.isgenerator(metrics):
-            metrics = yield from metrics
         if self.rows is None:
             self.rows = {n: torch.zeros((self.slots, *v.shape),
                                         dtype=v.dtype, device=v.device)
@@ -219,13 +259,9 @@ class _Slots:
             self.rows[name].index_copy_(0, i, value.detach().unsqueeze(0))
         i.add_(1)
 
-    def run(self, step, variant=None):
-        """One step eagerly, its collectives called where they fall."""
-        finish(self.body(step, variant))
-
     def close(self):
-        for segments, _, _ in self.graphs.values():
-            for graph in segments:
+        for pieces, _, _ in self.graphs.values():
+            for graph in pieces:
                 graph.reset()
         self.graphs = {}
         self.rows = self.pool = None
@@ -242,9 +278,9 @@ class StepChunk:
     beside the per-call buffers (saved and restored around the warm-up;
     their storage checked before each chunk); ``generator`` is the step's
     generator; ``unsupported`` names modes of the step that cannot be
-    captured (raised on the card); ``label`` names the step in errors. A
-    step that returns a generator yields its collective points (see the
-    module's docstring).
+    captured (raised on the card); ``label`` names the step in errors. The
+    step's collectives go through ``collective`` (see the module's
+    docstring).
     """
 
     def __init__(self, step: Callable, mutable: Callable[[], List],
@@ -322,7 +358,7 @@ class StepChunk:
         return self.mutable()[0].device
 
     def _capture(self, slots: _Slots, variant):
-        global warmup_steps
+        global warmup_steps, _CAPTURE
         if self.unsupported:
             raise ValueError(
                 f"the {self.label} cannot be captured in a CUDA graph with "
@@ -360,28 +396,35 @@ class StepChunk:
             slots.pool = torch.cuda.graph_pool_handle()
         before = _read_counters()
         slots.index.zero_()
-        segments, points = [], []
-        body = slots.body(self.step, variant)
+        capture = _Capture(slots.pool, generator)
+        torch.cuda.synchronize()
         try:
-            while True:
-                graph = torch.cuda.CUDAGraph()
-                if generator is not None:
-                    graph.register_generator_state(generator)
-                with torch.cuda.graph(graph, pool=slots.pool):
-                    point = next(body, None)
-                segments.append(graph)
-                if point is None:
-                    break
-                points.append(point)
+            with torch.cuda.stream(side):
+                _CAPTURE = capture
+                try:
+                    capture.begin()
+                    slots.run(self.step, variant)
+                    capture.end()
+                finally:
+                    _CAPTURE = None
+                    if capture.open:   # a failure inside a piece
+                        try:
+                            capture.end()
+                        except Exception:   # the error above is raised
+                            pass
         except Exception as e:
-            raise RuntimeError(f"capturing the {self.label} in a CUDA graph "
-                               f"failed: {e}") from e
+            for graph in capture.graphs:
+                graph.reset()
+            raise RuntimeError(
+                f"capturing the {self.label} in CUDA graphs failed in "
+                f"piece {len(capture.graphs) - 1}: {e}") from e
         finally:
+            torch.cuda.current_stream().wait_stream(side)
             if generator is not None:
                 generator.set_state(gen_state)
         deltas = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in deltas])
-        slots.graphs[variant] = (segments, points, deltas)
+        slots.graphs[variant] = (capture.graphs, capture.points, deltas)
         slots.pointers = [t.data_ptr() for t in mutable]
 
     def _replay(self, slots: _Slots, order):
@@ -391,15 +434,14 @@ class StepChunk:
                 "its CUDA graph was captured; write states in place")
         try:
             for variant in order:
-                segments, points, deltas = slots.graphs[variant]
-                for j, graph in enumerate(segments):
+                pieces, points, deltas = slots.graphs[variant]
+                for j, graph in enumerate(pieces):
                     graph.replay()
                     if j < len(points):
-                        buffer, fn = points[j]
-                        fn(buffer)
+                        points[j].fn()
                 _add_counters(deltas)
         except Exception as e:
-            raise RuntimeError(f"replaying the {self.label}'s CUDA graph "
+            raise RuntimeError(f"replaying the {self.label}'s CUDA graphs "
                                f"failed: {e}") from e
 
 

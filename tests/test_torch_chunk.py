@@ -10,10 +10,12 @@ steps from the same state and generator state, bit for bit (on the CPU the
 chunk runs its steps eagerly, reading its slots from the staged buffers
 the card's CUDA graph reads); the state's storage kept across steps,
 chunks and a resume (what a captured step needs); the staged tables equal
-to the host's floats; the loop's chunk boundaries; the mesh rule (a data
-axis runs, a model axis raises) and the debug rule. Small sizes.
+to the host's floats; the loop's chunk boundaries; the mesh rule (the
+chunk is made under any grid; ``remat`` and ``--distill`` across ranks
+raise) and the debug rule. Small sizes.
 """
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,7 @@ from test_torch_ncsn_models import xla_frequencies  # noqa: F401 (fixture)
 from test_torch_parallel import KEY_BIAS_RTOL
 from test_torch_training import _close, _jax_opt_state_tree, _replayed_draws
 
+ROOT = Path(__file__).resolve().parent.parent
 K, T = 3, 1000
 LR = 1e-3
 FUSED_KW = dict(num_layers=1, num_heads=2, num_mlp_layers=2, mlp_dims=64,
@@ -491,31 +494,39 @@ def test_chunked_resume_equals_a_straight_chunked_run(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_scan_chunk_under_a_mesh_raises():
-    """Under a mesh whose model axis is 1 the chunk is made and the loop
-    takes it (the data axis's all-reduce runs between the step's captured
-    segments); a model axis above 1 raises, naming that axis and why (its
-    collectives sit inside the forward pass and the norm), and never runs
-    the steps eagerly."""
+def test_scan_chunk_under_a_mesh_raises(monkeypatch):
+    """Under any mesh (a data axis, a model axis, both) the chunk is made:
+    each collective of its step cuts the captured step
+    (``utils/graphs.collective``), and the loop's refusal is gone
+    (tests/test_torch_parallel.py runs the chunks on 2 ranks). What still
+    raises: ``remat``, which a CUDA graph cannot capture (named by
+    ``uncapturable``, raised at the card's capture before any warm-up
+    step), and ``--distill`` across ranks, whose steps take no mesh, as in
+    JAX."""
+    from smd_tpu_torch import train_ncsn
     from smd_tpu_torch.parallel import mesh as mesh_lib
-    data = mesh_lib.Mesh(data=2, model=1)
-    assert isinstance(trainer.make_train_chunk(
-        losses.diffusion_loss, _betas(), True, mesh=data), graphs.TrainChunk)
-    assert isinstance(mdn.make_train_chunk(mesh=data), graphs.TrainChunk)
-    loop.check_chunk_mesh(data)
-    loop.check_chunk_mesh(None)
-    model = mesh_lib.Mesh(data=1, model=2)
-    message = "model axis of 2 is not ported.*forward pass"
-    with pytest.raises(ValueError, match=message):
-        trainer.make_train_chunk(losses.diffusion_loss, _betas(), True,
-                                 mesh=model)
-    with pytest.raises(ValueError, match=message):
-        mdn.make_train_chunk(mesh=model)
-    state = _port_state(_tiny_ddpm())
-    config = trainer.TrainConfig(scan_chunk=4)
-    with pytest.raises(ValueError, match=message):
-        loop.run_loop(state, None, None, None, None, config, mesh=model,
-                      train_chunk=lambda s, b: (s, {}))
+    for data, model in ((2, 1), (1, 2), (2, 2)):
+        mesh = mesh_lib.Mesh(data=data, model=model)
+        assert isinstance(trainer.make_train_chunk(
+            losses.diffusion_loss, _betas(), True, mesh=mesh),
+            graphs.TrainChunk)
+        assert isinstance(mdn.make_train_chunk(mesh=mesh), graphs.TrainChunk)
+    assert not hasattr(loop, "MESH_CHUNK")
+    assert not hasattr(loop, "check_chunk_mesh")
+    state = _port_state(_tiny_ddpm(remat=True))
+    chunk = graphs.StepChunk(lambda slot: {}, state.tensors, None,
+                             "diffusion train step",
+                             graphs.uncapturable(state))
+    with pytest.raises(ValueError, match="diffusion train step cannot be "
+                       "captured in a CUDA graph with remat"):
+        chunk._capture(None, None)
+    monkeypatch.setattr(train_ncsn.cli, "initialize_from_flags",
+                        lambda: (0, 2))
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(ValueError, match="--distill runs on one rank, not 2"):
+        train_ncsn.main(["train_ncsn",
+                         "--flagfile=configs/ddpm-mel-32seq-512.cfg",
+                         "--distill", "--device=cpu", "--model_dir=unused"])
 
 
 def test_debug_nans_checks_each_chunks_losses(tmp_path):

@@ -11,11 +11,15 @@ norm, the params after the step within 1e-5 (the key biases, on float
 noise, within 1e-3: see ``KEY_BIAS_RTOL``); runs the
 loop on both grids (checkpoints, resume, the result loaded on one rank and
 held to one rank's run); takes the diffusion and MDN trainers' chunks on
-the data axis (a chunk of 4 and one of 2) bit-equal to the same ranks'
-single steps and within 1e-5 of JAX's chunks over its mesh of 2 of those
-devices (``shard_chunk``); and trains through ``train_ncsn`` (model axis
-2; data axis 2 chunked and by single steps) and ``train_mdn`` (data axis
-2). ``dryrun_multichip(4)`` spawns 4 ranks of its own. Also the op profile of ``utils/profiling``.
+the data axis and on the model axis (a chunk of 4 and one of 2) bit-equal
+to the same ranks' single steps and within 1e-5 of JAX's chunks over its
+mesh of 2 of those devices on the same grid (``shard_chunk``); counts the
+collectives of a step, every one through ``graphs.collective`` (the cut
+of a captured step); and trains through ``train_ncsn`` (model axis 2 and
+data axis 2, each chunked and by single steps) and ``train_mdn`` (data
+axis 2). ``dryrun_multichip(4)`` spawns 4 ranks of its own, its 2 x 2
+chunk against its single steps. Also the op profile of
+``utils/profiling``.
 """
 import json
 import os
@@ -352,23 +356,26 @@ def test_sharded_step_equals_jax(ranks, grid):
 # (the ranks read 2.8e-3 of the norm, 5.4e-4 an element, against JAX's
 # 2-device chunks). The flagship's key blocks meet KEY_BIAS_RTOL.
 KEY_STEPS_RULE = ("mdn",)
-# JAX's chunks are taken on the grid the ranks run, a data axis of 2 over
-# conftest's devices, as ``_jax_step`` takes the one step: six Adam steps
+# JAX's chunks are taken on the grid the ranks run, a data axis of 2 or a
+# model axis of 2 over conftest's devices, as ``_jax_step`` takes the one
+# step: six Adam steps
 # carry each grid's summation order into the elements whose gradient is
 # at float noise. Read on the CPU, DenseFiLM_0.Dense_3.kernel after the 6
 # steps: JAX's 8-device chunks against its 2-device ones 1.42e-5 of the
 # leaf's norm (against one device 1.47e-5; 2 against 1 device 5.4e-7);
 # the ranks against JAX's 2-device chunks 3.3e-6 (5.7e-6 the worst leaf).
-CHUNK_MESH = dict(data=2, model=1)
+CHUNK_MESHES = {"dp": dict(data=2, model=1), "tp": dict(data=1, model=2)}
 
 
-def _jax_chunks(case, trainer_name):
-    """JAX's chunks over a CHUNK_MESH grid of conftest's devices, as its
-    chunked ``fit`` runs them (tests/test_parallel.py): the case's params
-    replicated, each (K, 8, ...) stack laid out by ``shard_chunk``.
-    Returns the state and the 6 losses."""
-    mesh = jmesh.make_mesh(jmesh.MeshConfig(**CHUNK_MESH),
-                           devices=jax.devices()[:CHUNK_MESH["data"]])
+def _jax_chunks(case, trainer_name, grid="dp"):
+    """JAX's chunks over ``grid``'s CHUNK_MESHES grid of conftest's
+    devices, as its chunked ``fit`` runs them (tests/test_parallel.py): the
+    case's params laid out by ``shard_params``, each (K, 8, ...) stack by
+    ``shard_chunk``. Returns the state and the 6 losses."""
+    shape = CHUNK_MESHES[grid]
+    mesh = jmesh.make_mesh(jmesh.MeshConfig(**shape),
+                           devices=jax.devices()[:shape["data"] *
+                                                 shape["model"]])
     schedule = joptimizer.stepped_exponential_schedule(1e-3, 1, 0.9)
     config = jtrainer.TrainConfig(**TRAIN)
     if trainer_name == "mdn":
@@ -400,16 +407,9 @@ def _jax_chunks(case, trainer_name):
     return state, np.concatenate(losses)
 
 
-@pytest.mark.parametrize("trainer_name", ["replayed", "drawn", "mdn"])
-def test_data_axis_chunk_equals_the_per_step_ranks(ranks, trainer_name):
-    """On 2 ranks, a chunk of 4 and a chunk of 2 (each rank on its rows of
-    the global stack, the all-reduce between the step's segments) leave
-    the state, the losses and the generator bit-equal to the same ranks'
-    6 single steps: the diffusion trainer with JAX's draws replayed and
-    with the draws from its generator, and the MDN trainer."""
-    _, out, _ = ranks
-    steps = out["chunks"][f"{trainer_name}_steps"]
-    chunk = out["chunks"][f"{trainer_name}_chunk"]
+def _check_chunk_equals_steps(out, grid, trainer_name):
+    steps = out["chunks"][grid][f"{trainer_name}_steps"]
+    chunk = out["chunks"][grid][f"{trainer_name}_chunk"]
     assert steps["step"] == chunk["step"] == CHUNK_CUTS[-1][1]
     assert torch.equal(steps["losses"], chunk["losses"])
     assert len(steps["tensors"]) == len(chunk["tensors"])
@@ -418,17 +418,31 @@ def test_data_axis_chunk_equals_the_per_step_ranks(ranks, trainer_name):
     assert torch.equal(steps["generator"], chunk["generator"])
 
 
-@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
-def test_data_axis_chunk_equals_jax(ranks, trainer_name):
-    """The 2 ranks' chunks against JAX's chunks over its mesh (CHUNK_MESH)
-    from the same params and global stacks, JAX's draws replayed: the
-    params (and the diffusion trainer's EMA) within 1e-5 of each leaf's
-    norm, the key biases within KEY_BIAS_RTOL, as
-    ``test_sharded_step_equals_jax`` holds one step (the MDN's key biases
-    by ``KEY_STEPS_RULE``); the 6 losses within 1e-5."""
+@pytest.mark.parametrize("trainer_name", ["replayed", "drawn", "mdn"])
+def test_data_axis_chunk_equals_the_per_step_ranks(ranks, trainer_name):
+    """On 2 ranks on a data axis, a chunk of 4 and a chunk of 2 (each rank
+    on its rows of the global stack, the all-reduce between the step's
+    captured graphs) leave the state, the losses and the generator
+    bit-equal to the same ranks' 6 single steps: the diffusion trainer
+    with JAX's draws replayed and with the draws from its generator, and
+    the MDN trainer."""
+    _check_chunk_equals_steps(ranks[1], "dp", trainer_name)
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "drawn", "mdn"])
+def test_model_axis_chunk_equals_the_per_step_ranks(ranks, trainer_name):
+    """As on the data axis, on a model axis of 2 (both ranks on the whole
+    stack, each split Dense's gather and reduce and the norm's all-reduce
+    between the step's captured graphs): every rank's blocks and
+    replicated leaves, the losses and the generator bit-equal to its 6
+    single steps."""
+    _check_chunk_equals_steps(ranks[1], "tp", trainer_name)
+
+
+def _check_chunk_equals_jax(ranks, grid, trainer_name):
     case, out, _ = ranks
-    ours = out["chunks"][f"{trainer_name}_chunk"]
-    state, jax_losses = _jax_chunks(case, trainer_name)
+    ours = out["chunks"][grid][f"{trainer_name}_chunk"]
+    state, jax_losses = _jax_chunks(case, trainer_name, grid)
     assert int(state.step) == ours["step"]
     key_steps = ours["step"] if trainer_name in KEY_STEPS_RULE else None
     _assert_leaves_close(ours["params"], state.params, stepped=True,
@@ -439,6 +453,51 @@ def test_data_axis_chunk_equals_jax(ranks, trainer_name):
         _assert_leaves_close(ours["ema"], state.ema_params, stepped=True)
     np.testing.assert_allclose(ours["losses"].numpy(), jax_losses,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
+def test_data_axis_chunk_equals_jax(ranks, trainer_name):
+    """The 2 ranks' chunks on a data axis against JAX's chunks over its
+    mesh (CHUNK_MESHES) from the same params and global stacks, JAX's
+    draws replayed: the params (and the diffusion trainer's EMA) within
+    1e-5 of each leaf's norm, the key biases within KEY_BIAS_RTOL, as
+    ``test_sharded_step_equals_jax`` holds one step (the MDN's key biases
+    by ``KEY_STEPS_RULE``); the 6 losses within 1e-5."""
+    _check_chunk_equals_jax(ranks, "dp", trainer_name)
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
+def test_model_axis_chunk_equals_jax(ranks, trainer_name):
+    """The 2 ranks' chunks on a model axis (their split leaves gathered
+    whole) against JAX's chunks on a (data 1, model 2) mesh, by the same
+    rules as on the data axis."""
+    _check_chunk_equals_jax(ranks, "tp", trainer_name)
+
+
+@pytest.mark.parametrize("grid", ["dp", "tp"])
+def test_every_collective_of_a_step_goes_through_the_cut(ranks, grid):
+    """Every ``torch.distributed`` collective of a chunk's steps is called
+    inside ``graphs.collective`` (where a captured step cuts its graphs;
+    one called past it would fail under gloo or be captured under NCCL),
+    and a step cuts once for each split Dense's gather, once for each
+    split Dense whose input needs a gradient (its all-reduce in the
+    backward), once for the norm under a model axis and once for the
+    gradients' all-reduce under a data axis."""
+    _, out, _ = ranks
+    cuts = out["cuts"][grid]
+    assert cuts["outside"] == 0
+    assert cuts["inside"] == cuts["cuts"] > 0
+    per_step = cuts["cuts"] // cuts["steps"]
+    assert per_step * cuts["steps"] == cuts["cuts"]
+    data, model = (2, 1) if grid == "dp" else (1, 2)
+    dense, grad_inputs = cuts["split_dense"], cuts["grad_inputs"]
+    assert bool(dense) == (model > 1)
+    assert per_step == dense + grad_inputs + (model > 1) + (data > 1)
+    if grid == "tp":
+        # The trunk's input projection and each FiLM's first Dense take
+        # the data and the noise embedding, which need no gradient.
+        assert (dense, grad_inputs) == (19, 16)
+        assert per_step == 2 * dense - 3 + 1
 
 
 def _one_rank_loop(case, max_steps, model_dir=None):
@@ -531,21 +590,33 @@ def test_clis_train_on_two_ranks_and_serve_on_one(ranks, monkeypatch):
     assert generated.shape == (4, 32, 512) and np.isfinite(generated).all()
 
 
-def test_train_ncsn_chunk_on_the_data_axis_equals_its_steps(ranks):
-    """``train_ncsn --scan_chunk=2`` on a data axis of 2 (a chunk of 2,
-    then one step cut at max_steps) ends bit-equal to the same run by
-    single steps: params, Adam moments and EMA."""
-    _, out, _ = ranks
-    runs = out["clis"]["ncsn_chunk"]
+def _check_cli_chunk(runs, shape):
     (step2, shape2, chunked), (step1, shape1, single) = runs[2], runs[1]
     assert step2 == step1 == 3
-    assert shape2 == shape1 == {"data": 2, "model": 1}
+    assert shape2 == shape1 == shape
     assert len(chunked) == len(single)
     for a, b in zip(chunked, single):
         assert torch.equal(a, b)
 
 
+def test_train_ncsn_chunk_on_the_data_axis_equals_its_steps(ranks):
+    """``train_ncsn --scan_chunk=2`` on a data axis of 2 (a chunk of 2,
+    then one step cut at max_steps) ends bit-equal to the same run by
+    single steps: params, Adam moments and EMA."""
+    _check_cli_chunk(ranks[1]["clis"]["ncsn_chunk"], {"data": 2, "model": 1})
+
+
+def test_train_ncsn_chunk_on_the_model_axis_equals_its_steps(ranks):
+    """``train_ncsn --scan_chunk=2 --model_parallelism=2`` (a chunk of 2,
+    then one step cut at max_steps) ends bit-equal to the same run by
+    single steps: rank 0's blocks and whole leaves, its moments and EMA."""
+    _check_cli_chunk(ranks[1]["clis"]["ncsn_model_chunk"],
+                     {"data": 1, "model": 2})
+
+
 def test_dryrun_multichip_on_four_cpu_ranks():
+    """The 2 x 2 grid's step, and its chunk of 2 bit-equal to its 2 single
+    steps on every rank (``dryrun_multichip`` raises otherwise)."""
     result = dryrun.dryrun_multichip(4, device="cpu")
     assert (result["data"], result["model"], result["backend"]) == \
         (2, 2, "gloo")

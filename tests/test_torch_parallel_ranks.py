@@ -8,6 +8,7 @@ a dataset for the CLIs, the chunks' global stacks and draws), takes every
 step the test asks for in one process group and writes what rank 0 saw to
 ``out.pkl``.
 """
+import functools
 import os
 import pickle
 import sys
@@ -21,7 +22,16 @@ from smd_tpu_torch.parallel import mesh as mesh_lib
 from smd_tpu_torch.training import diffusion as trainer
 from smd_tpu_torch.training import loop as loop_lib
 from smd_tpu_torch.training import mdn
+from smd_tpu_torch.utils import graphs
 from smd_tpu_torch.utils.flax_params import load_flax_params
+
+GRIDS = (("dp", mesh_lib.MeshConfig(data=2, model=1)),
+         ("tp", mesh_lib.MeshConfig(data=1, model=2)))
+# Every collective of torch.distributed a step could call.
+COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
+               "all_to_all", "all_to_all_single", "barrier", "broadcast",
+               "gather", "reduce", "reduce_scatter", "reduce_scatter_tensor",
+               "scatter", "send", "recv", "isend", "irecv")
 
 
 def _numpy(tree):
@@ -88,6 +98,67 @@ def _mdn_model(case):
     return load_flax_params(model, case["mdn_params"])
 
 
+def _replicated(state):
+    """The state's tensors that every rank holds whole (params, moments,
+    EMA): under a model axis the split leaves' blocks differ by rank."""
+    whole = [n for n in state.params if n not in state.specs]
+    trees = (state.params, state.opt_state["mu"], state.opt_state["nu"],
+             state.ema_params or {})
+    return [tree[n].detach() for tree in trees for n in whole if n in tree]
+
+
+def _cuts(case, config):
+    """A chunk of 2 diffusion steps of the narrow flagship over
+    ``config``'s mesh with every collective of ``torch.distributed``
+    wrapped: the calls made outside ``graphs.collective`` and inside it,
+    the cuts (``graphs.collective`` calls) a step, the split Dense layers
+    and how many of them take an input that needs a gradient (those
+    all-reduce it in the backward)."""
+    mesh = mesh_lib.make_mesh(config)
+    state = trainer.create_train_state(_model(case), trainer.TrainConfig(
+        **case["train_config"]), init=False, mesh=mesh)
+    modules = dict(state.model.named_modules())
+    owners = sorted({n.rsplit(".", 1)[0] for n in state.specs})
+    needs_grad = {}
+    hooks = [modules[o].register_forward_pre_hook(
+        lambda m, args, o=o: needs_grad.__setitem__(o, args[0].requires_grad))
+        for o in owners]
+    calls = {"outside": 0, "inside": 0, "cuts": 0}
+    depth = [0]
+    real_collective = graphs.collective
+
+    def collective(fn, *buffers):
+        calls["cuts"] += 1
+        depth[0] += 1
+        try:
+            real_collective(fn, *buffers)
+        finally:
+            depth[0] -= 1
+
+    def wrapped(real, *args, **kwargs):
+        calls["inside" if depth[0] else "outside"] += 1
+        return real(*args, **kwargs)
+
+    reals = {n: getattr(dist, n) for n in COLLECTIVES if hasattr(dist, n)}
+    stack = torch.from_numpy(case["chunk_batches"][:2])
+    chunk = trainer.make_train_chunk(
+        losses.diffusion_loss, schedules.noise_schedule(*case["betas"]),
+        True, mesh)
+    graphs.collective = collective
+    for name, real in reals.items():
+        setattr(dist, name, functools.partial(wrapped, real))
+    try:
+        chunk(state, mesh_lib.shard_chunk(stack, mesh))
+    finally:
+        graphs.collective = real_collective
+        for name, real in reals.items():
+            setattr(dist, name, real)
+        for hook in hooks:
+            hook.remove()
+    return {**calls, "steps": len(stack), "split_dense": len(owners),
+            "grad_inputs": sum(needs_grad.values())}
+
+
 def _state_out(state, losses):
     """What a run left: every tensor a step writes, the losses, the step
     count, and the whole params and EMA (the JAX comparison's)."""
@@ -99,14 +170,16 @@ def _state_out(state, losses):
             _numpy(saved["ema_params"])}
 
 
-def _chunks(case):
+def _chunks(case, config):
     """The diffusion trainer (the case's draws replayed, and drawn from
-    the state's generator) and the MDN trainer on a data axis of 2: the
-    global (6, batch, ...) stack as a chunk of 4 and a chunk of 2 (cut as
-    at a snapshot), each rank on its rows (``shard_chunk``), against the
-    same ranks' 6 per-step steps on their rows of each global batch
-    (``shard_batch``). The replicas are checked equal after each run."""
-    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=2, model=1))
+    the state's generator) and the MDN trainer over ``config``'s mesh (a
+    data axis of 2, or a model axis of 2): the global (6, batch, ...) stack
+    as a chunk of 4 and a chunk of 2 (cut as at a snapshot), each rank on
+    its rows (``shard_chunk``; both ranks of a model group on the whole
+    stack), against the same ranks' 6 per-step steps on their rows of each
+    global batch (``shard_batch``). The replicas (the replicated leaves on
+    a model axis) are checked equal after each run."""
+    mesh = mesh_lib.make_mesh(config)
     sigmas = schedules.noise_schedule(*case["betas"])
     config = trainer.TrainConfig(**case["train_config"])
     out = {}
@@ -142,7 +215,7 @@ def _chunks(case):
                     kw = {} if draws is None else \
                         {"draws": tuple(d[lo:hi] for d in draws)}
                     run.append(chunk(state, rows[lo:hi], **kw)[1]["loss"])
-            mesh_lib.check_replicas_equal(state.tensors(), "state")
+            mesh_lib.check_replicas_equal(_replicated(state), "state")
             out[f"{trainer_name}_{how}"] = _state_out(state, run)
             out[f"{trainer_name}_{how}"]["generator"] = \
                 state.generator.get_state()
@@ -151,7 +224,9 @@ def _chunks(case):
 
 def _clis(case, work):
     """``train_ncsn`` on a model axis of 2 and ``train_mdn`` on a data axis
-    of 2, both in the running group (each rank reads its shard)."""
+    of 2, both in the running group (each rank reads its shard);
+    ``train_ncsn --scan_chunk=2`` on each axis against its single
+    steps."""
     from smd_tpu_torch import train_mdn, train_ncsn
     common = [f"--dataset={case['dataset']}",
               "--slice_ckpt=checkpoints/slice-mel-512.pkl",
@@ -162,23 +237,27 @@ def _clis(case, work):
                             "--flagfile=configs/ddpm-mel-32seq-512.cfg",
                             f"--model_dir={work}/ncsn", "--num_sigmas=20",
                             "--model_parallelism=2", *common])
-    # The data axis through the chunk (2 steps, then 1 cut at max_steps)
-    # and through single steps, from the same seed.
-    chunked = {}
-    for scan_chunk in (2, 1):
+    # Each axis through the chunk (2 steps, then 1 cut at max_steps) and
+    # through single steps, from the same seed; the model axis's single
+    # steps are the run above.
+    chunked = {"dp": {}, "tp": {1: (ncsn.step, ncsn.mesh.shape,
+                                    [t.clone() for t in ncsn.tensors()])}}
+    for grid, scan_chunk, extra in (("dp", 2, []), ("dp", 1, []),
+                                    ("tp", 2, ["--model_parallelism=2"])):
         state = train_ncsn.main([
             "train_ncsn", "--flagfile=configs/ddpm-mel-32seq-512.cfg",
-            f"--model_dir={work}/ncsn-data-{scan_chunk}", "--num_sigmas=20",
-            f"--scan_chunk={scan_chunk}", *common])
-        chunked[scan_chunk] = (state.step, state.mesh.shape,
-                               [t.clone() for t in state.tensors()])
+            f"--model_dir={work}/ncsn-{grid}-{scan_chunk}",
+            "--num_sigmas=20", f"--scan_chunk={scan_chunk}", *extra,
+            *common])
+        chunked[grid][scan_chunk] = (state.step, state.mesh.shape,
+                                     [t.clone() for t in state.tensors()])
     mdn = train_mdn.main(["train_mdn",
                           "--flagfile=configs/mdn-mel-32seq-512.cfg",
                           f"--model_dir={work}/mdn", "--mdn_components=3",
                           *common])
     return {"ncsn": (ncsn.step, sorted(ncsn.specs), ncsn.mesh.shape),
             "mdn": (mdn.step, sorted(mdn.specs), mdn.mesh.shape),
-            "ncsn_chunk": chunked}
+            "ncsn_chunk": chunked["dp"], "ncsn_model_chunk": chunked["tp"]}
 
 
 def xla_embedding(freqs):
@@ -210,13 +289,14 @@ def run(rank, world, port, work):
             case = pickle.load(f)
         blocks.sinusoidal_embedding = xla_embedding(case["xla_freqs"])
         out = {}
-        for name, config in (("dp", mesh_lib.MeshConfig(data=2, model=1)),
-                             ("tp", mesh_lib.MeshConfig(data=1, model=2))):
+        for name, config in GRIDS:
             out[name] = _step(case, config)
             # Trained 4 steps with checkpoints at 2 and 4, then resumed to 6.
             out[f"loop_{name}"] = [_loop(case, f"{work}/loop-{name}", config,
                                          steps) for steps in (4, 6)]
-        out["chunks"] = _chunks(case)
+        out["chunks"] = {name: _chunks(case, config)
+                         for name, config in GRIDS}
+        out["cuts"] = {name: _cuts(case, config) for name, config in GRIDS}
         out["clis"] = _clis(case, work)
         if rank == 0:
             with open(f"{work}/out.pkl", "wb") as f:
