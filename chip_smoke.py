@@ -228,7 +228,10 @@ Phases, one flushed line each with its seconds:
     on 64x32x42 against the unsplit model, the first gradient and the
     params after 3 steps (TP_FORWARD_RTOL, TP_RTOL); peak memory a rank.
     Then the chunk on the model axis, for the float32 standard flagship
-    and the fused bf16 flagship at full width: 3 single steps, then the
+    and the fused bf16 flagship at full width, and the fused one with each
+    transformer layer checkpointed (``remat``: the backward recomputes
+    each layer, its attention launch and the all-gather of its MLP's input
+    Dense again, one more piece each): 3 single steps, then the
     same 3 steps as one chunk from the same start, capturing and then
     replaying (the step captured in pieces cut at each collective: each
     split Dense's all-gather, its input gradient's all-reduce in the
@@ -260,8 +263,18 @@ Phases, one flushed line each with its seconds:
     steps (8 x (6, 4) fused, 8 x (18, 12) distillation); a planted fault,
     a chunk whose replays all read slot 0's batch, must read beyond the
     limit. Wall ms a step, host launches a step, device-busy ms, idle
-    share and peak memory, eager against captured, beside the card. The
-    chunks' film and attention launches join their records' counts.
+    share and peak memory, eager against captured, beside the card. Then
+    the fused, float32 and MDN trainers with ``remat`` by the same checks
+    (a fused step launches attention 12 times, 6 of them recomputed), each
+    against its plain mode: the activations its captured forward keeps
+    must be fewer, and its peak no higher (the captured peak printed as
+    the warm-up's and the capture's). The chunks' film and attention
+    launches join their records' counts.
+26b. remat through the CLIs: ``train_ncsn --remat`` and ``train_mdn
+    --remat`` on their flagfiles at full width, 8 steps in chunks of 4
+    (captured) and by single steps, every parameter bit-equal; then
+    ``train_ncsn --distill --remat`` (progressive 4 -> 2) on the chunked
+    run's checkpoint, its stage's chunk captured.
 
 27. captured sampler chains: each chain's step captured in a CUDA graph
     and replayed, against the same chain run eagerly
@@ -312,6 +325,7 @@ CUDA device, or without the repository beside it, it fails and prints no
 result.
 """
 import contextlib
+import functools
 import glob
 import json
 import logging
@@ -3441,15 +3455,17 @@ def _ddp_batch():
                       device="cuda") * 2 - 1
 
 
-def _fused_bf16(seed=0):
+def _fused_bf16(seed=0, remat=False):
     """The fused flagship with bf16 params and compute (phase 13's
-    training layout), weights from a seed."""
+    training layout), weights from a seed; ``remat`` checkpoints its
+    transformer layers."""
     from smd_tpu_torch.models import get_model
     from smd_tpu_torch.utils.flax_params import (load_flax_params,
                                                  random_flax_params)
     model = get_model("TransformerDDPM", device="cuda",
                       data_channels=CHANNELS, fused_attention=True,
-                      fused_head=True, dtype=torch.bfloat16, **FLAGSHIP)
+                      fused_head=True, dtype=torch.bfloat16, remat=remat,
+                      **FLAGSHIP)
     load_flax_params(model, random_flax_params(model, seed=seed))
     return model.to(torch.bfloat16)
 
@@ -3555,10 +3571,13 @@ def _tp_chunk(make, mesh, betas, batch):
                                       f"replicated leaves after the {how}")
     pieces, points, _ = chunk._chunk._last.graphs[None]
     kinds = [getattr(p.fn, "func", None) for p in points]
+    owners = {n.rsplit(".", 1)[0] for n in state.specs}
     out.update(pieces=len(pieces), collectives=len(points),
                gathers=kinds.count(dist.all_gather),
                reduces=kinds.count(dist.all_reduce),
-               split_dense=len({n.rsplit(".", 1)[0] for n in state.specs}))
+               split_dense=len(owners),
+               layer_dense=sum("TransformerLayer_" in o for o in owners),
+               remat=state.model.TransformerEncoder_0.remat)
     j = kinds.index(dist.all_gather)
     kept = points[j]
     points[j] = graphs.Point(lambda: None, kept.buffers)
@@ -3682,8 +3701,11 @@ def _ddp_rank(rank, n, backend, port, out_dir):
         out["tp_params"] = {k: v.cpu() for k, v in params.items()}
         del state, grads, params
         torch.cuda.empty_cache()
-        # 25c: the chunk on the model axis, float32 and fused bf16.
-        for name, make in (("f32", _standard_f32), ("bf16", _fused_bf16)):
+        # 25c: the chunk on the model axis, float32 and fused bf16, and
+        # fused bf16 with its layers checkpointed.
+        for name, make in (("f32", _standard_f32), ("bf16", _fused_bf16),
+                           ("bf16_remat",
+                            functools.partial(_fused_bf16, remat=True))):
             out[f"tpc_{name}"] = _tp_chunk(make, mesh, betas, batch)
             torch.cuda.empty_cache()
         if rank:
@@ -3806,8 +3828,8 @@ def _one_rank_ddp(betas, batch):
 def phase_ddp_ranks(smi):
     """25b-25c: two ranks on the data axis (the fused flagship at bf16)
     and on the model axis (the float32 standard flagship; the chunk of it
-    and of the fused flagship at bf16). Returns the ranks' launch
-    counts."""
+    and of the fused flagship at bf16, with and without remat). Returns
+    the ranks' launch counts."""
     from smd_tpu_torch import dryrun
     from smd_tpu_torch.diffusion import losses, schedules
     from smd_tpu_torch.training import diffusion as trainer
@@ -3944,9 +3966,19 @@ def phase_ddp_ranks(smi):
     torch.cuda.empty_cache()
     for name, what, layout in (("f32", "standard flagship float32",
                                 "standard"),
-                               ("bf16", "fused flagship bf16", "fused")):
+                               ("bf16", "fused flagship bf16", "fused"),
+                               ("bf16_remat", "fused flagship bf16 with remat",
+                                "fused")):
         got = [r[f"tpc_{name}"] for r in ranks]
         per_step = per_call_launches(layout)
+        # Under remat the backward recomputes each transformer layer up to
+        # the last tensor it saved: its attention launch again, and the
+        # all-gather of every split Dense of the layer but the MLP's output
+        # Dense, whose gathered output only the residual sum reads.
+        recomputed = 0
+        if got[0]["remat"]:
+            per_step = (2 * per_step[0], *per_step[1:])
+            recomputed = got[0]["layer_dense"] - FLAGSHIP["num_layers"]
         expected = {
             "steps": tuple(DDP_TRAIN_STEPS * k for k in per_step),
             "capture": tuple((DDP_TRAIN_STEPS + graphs.WARMUP_STEPS) * k
@@ -3973,18 +4005,20 @@ def phase_ddp_ranks(smi):
                      "all-gather skipped was not caught: the chunk does not "
                      "read the collectives run between its pieces")
             if g["collectives"] != g["gathers"] + g["reduces"] or \
-                    g["gathers"] != g["split_dense"] or \
+                    g["gathers"] != g["split_dense"] + recomputed or \
                     g["pieces"] != g["collectives"] + 1:
                 fail(f"model-axis rank {r}, {what}: {g['pieces']} pieces, "
                      f"{g['collectives']} collectives ({g['gathers']} "
                      f"all-gathers, {g['reduces']} all-reduces) for "
-                     f"{g['split_dense']} split Dense layers")
+                     f"{g['split_dense']} split Dense layers and "
+                     f"{recomputed} recomputed")
         g = got[0]
         say(f"25c the chunk on the model axis, {what} ({where}; "
             f"{g['split_dense']} split Dense layers): {DDP_TRAIN_STEPS} "
             f"steps as one chunk from the same start, {g['pieces']} "
             f"captured pieces and {g['collectives']} collectives a step "
-            f"({g['gathers']} all-gathers, {g['reduces']} all-reduces, the "
+            f"({g['gathers']} all-gathers, {recomputed} of them the "
+            f"backward's recompute, {g['reduces']} all-reduces, the "
             "norm's among them) eager between them: params, Adam moments, "
             "EMA, losses and generator bit-equal to the single steps, "
             "capturing and replaying, replicated leaves equal (checksums); "
@@ -3999,7 +4033,8 @@ def phase_ddp_ranks(smi):
             f"steps; on {smi}")
     return tuple(sum(c) for c in zip(
         *(got[k] for got in ranks for k in ("dp_counts", "chunk_counts")),
-        *(got["tpc_bf16"][k] for got in ranks
+        *(got[f"tpc_{name}"][k] for got in ranks
+          for name in ("bf16", "bf16_remat")
           for k in ("steps_counts", "capture_counts", "replay_counts"))))
 
 
@@ -4022,10 +4057,15 @@ def phase_dryrun_multichip(smi):
 # state, at full width: the fused flagship at bf16 and the standard one in
 # float32 on 64 x 32x42, the MDN on 128 x 32x42, a progressive-distillation
 # stage (8 -> 4) of the fused flagship, and the codec at melody-2-big width
-# on batch 64. profile_torch_train.py builds the same trainers.
+# on batch 64; then the fused, float32 and MDN trainers again with each
+# transformer layer checkpointed (``_remat``: recomputed inside the
+# captured backward), each after its plain mode, whose captured peak
+# memory it must stay below. profile_torch_train.py builds the same
+# trainers.
 CHUNK_STEPS = 8
 CHUNK_PROFILE_STEPS = 2     # steps under the profiler, eager and captured
-CHUNK_MODES = ("fused", "fp32", "mdn", "distill", "codec")
+CHUNK_MODES = ("fused", "fp32", "mdn", "distill", "codec", "fused_remat",
+               "fp32_remat", "mdn_remat")
 TRAIN_BATCH = {"fp32": 64, "mixed": 64, "fused": 64, "distill": 64,
                "mdn": 128, "codec": 64}
 # The codec's chunk draws its scheduled-sampling tokens at every step (the
@@ -4047,11 +4087,14 @@ class Trainer:
     losses``, a captured step replayed), the tensors both write, and
     ``snapshot``/``restore`` of the whole state (tensors, counts,
     generator). Modes: ``fp32``, ``mixed``, ``fused``, ``distill``,
-    ``mdn`` and ``codec``; ``batch`` defaults to TRAIN_BATCH's."""
+    ``mdn`` and ``codec``, and each but the codec with ``_remat`` (the
+    model's transformer layers checkpointed); ``batch`` defaults to
+    TRAIN_BATCH's."""
 
     def __init__(self, mode, batch=None, seed=0):
-        self.mode = mode
-        self.batch = batch or TRAIN_BATCH[mode]
+        self.mode = mode.removesuffix("_remat")
+        self.remat = mode.endswith("_remat")
+        self.batch = batch or TRAIN_BATCH[self.mode]
         gen = torch.Generator(device="cuda").manual_seed(seed + 1)
         if mode == "codec":
             self._codec(seed, gen)
@@ -4061,7 +4104,27 @@ class Trainer:
                 device="cuda") * 2 - 1
             self._diffusion(seed)
             self.gen = self.state.generator
-        self.chunk_fn = self._chunk()
+        self.kept = []
+        self.chunk_fn = self._measured(self._chunk())
+
+    def _measured(self, chunk):
+        """``chunk`` with its loss function (a ``TrainChunk``'s) recording
+        into ``kept`` the bytes allocated at the end of the forward above
+        its start: the activations the step keeps for its backward. A
+        replay runs no Python, so the last entry is the capture's (its
+        allocations come from the graph's pool)."""
+        fn = getattr(chunk, "loss_fn", None)
+        if fn is None:
+            return chunk
+
+        def loss_fn(*args):
+            before = torch.cuda.memory_allocated()
+            loss = fn(*args)
+            self.kept.append(torch.cuda.memory_allocated() - before)
+            return loss
+
+        chunk.loss_fn = loss_fn
+        return chunk
 
     def _diffusion(self, seed):
         from smd_tpu_torch.diffusion import losses, schedules
@@ -4073,7 +4136,7 @@ class Trainer:
             from smd_tpu_torch.training import mdn
             model = init_parameters(get_model(
                 "TransformerMDN", device="cuda", data_channels=CHANNELS,
-                **MDN_WIDTH), seed)
+                remat=self.remat, **MDN_WIDTH), seed)
             self.state = mdn.create_train_state(
                 model, trainer.TrainConfig(learning_rate=3e-4), seed,
                 init=False)
@@ -4085,7 +4148,7 @@ class Trainer:
                           data_channels=CHANNELS,
                           dtype=torch.float32 if self.mode == "fp32" else
                           torch.bfloat16, fused_attention=fused,
-                          fused_head=fused, **FLAGSHIP)
+                          fused_head=fused, remat=self.remat, **FLAGSHIP)
         init_parameters(model, seed)
         if fused:
             model = model.to(torch.bfloat16)
@@ -4235,23 +4298,70 @@ def _stale_slot():
         graphs._Slots.run = run
 
 
+def _peak_above(base):
+    """GB allocated at the peak since the last reset, above ``base``."""
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+@contextlib.contextmanager
+def _peak_split_at_capture(marks):
+    """Append to ``marks`` the peak allocated before a chunk's first
+    capture begins (its warm-up steps, the state's saved copy alive) and
+    reset the peak there, so that the peak read after the run is the
+    capture's and the replays'."""
+    from smd_tpu_torch.utils import graphs
+    begin = graphs._Capture.begin
+
+    def split(self):
+        if not marks:
+            marks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        begin(self)
+
+    graphs._Capture.begin = split
+    try:
+        yield
+    finally:
+        graphs._Capture.begin = begin
+
+
 def phase_chunks(smi, modes=CHUNK_MODES):
-    """26: each trainer's captured chunk against its eager steps."""
+    """26: each trainer's captured chunk against its eager steps; a
+    ``_remat`` mode's activations kept by the captured forward
+    (``Trainer.kept``) below its plain mode's, which must have run before
+    it. Each mode's peak above what was allocated before the run (the
+    state, its snapshot, the batches) is printed, eager and captured: at
+    the flagfiles' batches the optimizer's temporaries, after the
+    backward, set it, so remat need not lower it."""
     from smd_tpu_torch.utils import graphs
     counts = []
+    peaks = {}
     for mode in modes:
         t0 = time.perf_counter()
         trainer = Trainer(mode)
+        plain_mode = trainer.mode
+        if trainer.remat and plain_mode not in peaks:
+            fail(f"{mode} runs after {plain_mode}, whose peak it is held to")
         snap = trainer.snapshot()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         eager = _chunk_run(trainer, snap, False)
         eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        eager_step = _peak_above(base)
         again = _chunk_run(trainer, snap, False)
         spread = _leaf_gap(again[0], eager[0])[0]
         loss_spread = float((again[1] - eager[1]).abs().max())
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        first = _chunk_run(trainer, snap, True)     # warm-up and capture
-        chunk_peak = torch.cuda.max_memory_allocated() / 1e9
+        marks = []
+        with _peak_split_at_capture(marks):
+            first = _chunk_run(trainer, snap, True)     # warm-up and capture
+        capture_step = _peak_above(base)
+        warmup_step = (marks[0] - base) / 1e9
+        chunk_step = max(warmup_step, capture_step)
+        chunk_peak = chunk_step + base / 1e9
+        kept = trainer.kept[-1] / 1e9 if trainer.kept else float("nan")
+        peaks[mode] = (eager_step, chunk_step, kept)
         captured = _chunk_run(trainer, snap, True)
         limit = CHUNK_SPREAD_FACTOR * spread
         loss_limit = CHUNK_SPREAD_FACTOR * loss_spread
@@ -4274,7 +4384,9 @@ def phase_chunks(smi, modes=CHUNK_MODES):
         per_step = {"fused": per_call_launches("fused"),
                     "distill": tuple(3 * n for n in
                                      per_call_launches("fused"))}.get(
-                                         mode, (0, 0, 0, 0))
+                                         plain_mode, (0, 0, 0, 0))
+        if trainer.remat:   # each layer's attention again in the backward
+            per_step = (2 * per_step[0], *per_step[1:])
         expected = tuple(CHUNK_STEPS * n for n in per_step)
         if tuple(eager[4][:4]) != expected or eager[4][4] != eager[4][0]:
             fail(f"{mode}: {CHUNK_STEPS} eager steps launched "
@@ -4305,6 +4417,27 @@ def phase_chunks(smi, modes=CHUNK_MODES):
                 f"operations, {busy:.3f} device-busy ms a step, idle "
                 f"{idle:.3f} ({CHUNK_PROFILE_STEPS} steps profiled), peak "
                 f"memory {peak:.2f} GB")
+        rows.append(f"peak above the state before the run: eager "
+                    f"{eager_step:.3f} GB, captured {chunk_step:.3f} GB "
+                    f"(its warm-up {warmup_step:.3f}, the state's copy "
+                    f"alive; the capture and replays {capture_step:.3f}); "
+                    f"activations kept by the captured forward "
+                    f"{kept:.4f} GB")
+        if trainer.remat:
+            plain_eager, plain_chunk, plain_kept = peaks[plain_mode]
+            if not kept < plain_kept:
+                fail(f"{mode}: the captured forward keeps {kept:.4f} GB "
+                     f"for its backward, not below {plain_mode}'s "
+                     f"{plain_kept:.4f} GB: remat kept the activations")
+            if chunk_step > plain_chunk:
+                fail(f"{mode}: the captured chunk's peak above the state "
+                     f"{chunk_step:.3f} GB exceeds {plain_mode}'s "
+                     f"{plain_chunk:.3f} GB")
+            rows.append(f"without remat ({plain_mode}): peak eager "
+                        f"{plain_eager:.3f} GB, captured {plain_chunk:.3f} "
+                        f"GB (captured {plain_chunk - chunk_step:.3f} GB "
+                        f"lower with remat), kept {plain_kept:.4f} GB "
+                        f"({plain_kept - kept:.4f} GB lower with remat)")
         say(f"26 {mode}, batch {trainer.batch}: {CHUNK_STEPS} captured "
             f"steps against {CHUNK_STEPS} eager ones from the same state: "
             f"worst leaf {_leaf_gap(captured[0], eager[0])[0]:.3e}, losses "
@@ -4320,6 +4453,112 @@ def phase_chunks(smi, modes=CHUNK_MODES):
         del trainer, snap, eager, again, first, captured, faulty
         torch.cuda.empty_cache()
     return counts
+
+
+# Remat through the CLIs (phase 26b): the flagfiles at full width with
+# --remat, each run in chunks (the step captured, each transformer layer
+# recomputed in its backward) and by single steps from the same seed;
+# then progressive distillation of the chunked run's checkpoint.
+REMAT_CLI_STEPS, REMAT_CLI_CHUNK = 8, 4
+REMAT_CLI_TRAIN, REMAT_CLI_EVAL = 512, 256
+
+
+@contextlib.contextmanager
+def _counted_checkpoints(calls):
+    """Count the model's layer checkpoints (``torch.utils.checkpoint``
+    calls of ``TransformerEncoder``) into ``calls[0]``; a captured step
+    makes them at its warm-up and capture only."""
+    from smd_tpu_torch.models import ddpm
+    real = ddpm.checkpoint
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    ddpm.checkpoint = counted
+    try:
+        yield
+    finally:
+        ddpm.checkpoint = real
+
+
+def phase_remat_clis(smi):
+    """26b: ``train_ncsn --remat`` and ``train_mdn --remat`` in chunks of
+    REMAT_CLI_CHUNK against the same runs by single steps, every parameter
+    bit-equal; ``train_ncsn --distill --remat`` on the chunked run's
+    checkpoint, its chunk captured. Each run checkpoints layers and the
+    chunked ones capture (warm-up steps counted)."""
+    from smd_tpu_torch import cli, train_mdn, train_ncsn
+    from smd_tpu_torch.utils import graphs
+    cli.define_sampling_flags()   # --distill restores for sampling
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        _write_latents(data, REMAT_CLI_TRAIN, REMAT_CLI_EVAL)
+        common = [f"--dataset={data}", f"--slice_ckpt={data}/slice.pkl",
+                  "--remat", f"--max_steps={REMAT_CLI_STEPS}",
+                  f"--snapshot_freq={REMAT_CLI_STEPS}",
+                  f"--logging_freq={REMAT_CLI_CHUNK}"]
+        for name, main, flagfile in (("train_ncsn", train_ncsn.main,
+                                      FLAGFILE),
+                                     ("train_mdn", train_mdn.main,
+                                      MDN_FLAGFILE)):
+            runs = {}
+            for chunk in (REMAT_CLI_CHUNK, 1):
+                calls, warm = [0], graphs.warmup_steps
+                _reset_counts()
+                t0 = time.perf_counter()
+                with _counted_checkpoints(calls):
+                    state = main([name, f"--flagfile={flagfile}",
+                                  f"--model_dir={tmp}/{name}-{chunk}",
+                                  f"--scan_chunk={chunk}", *common])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                _no_launches(f"{name} --remat")
+                captured = graphs.warmup_steps > warm
+                if state.step != REMAT_CLI_STEPS or not calls[0] or \
+                        captured != (chunk > 1):
+                    fail(f"{name} --remat --scan_chunk={chunk}: step "
+                         f"{state.step}, {calls[0]} layer checkpoints, "
+                         f"captured {captured}")
+                runs[chunk] = ({n: p.detach().clone()
+                                for n, p in state.params.items()},
+                               seconds, calls[0])
+                del state
+            differ = [n for n, p in runs[REMAT_CLI_CHUNK][0].items()
+                      if not torch.equal(p, runs[1][0][n])]
+            if differ:
+                fail(f"{name} --remat --scan_chunk={REMAT_CLI_CHUNK} differs "
+                     f"from its run by single steps in {len(differ)} "
+                     f"parameters, e.g. {differ[:3]}")
+            say(f"26b {name} --remat on {flagfile} at full width, "
+                f"{REMAT_CLI_STEPS} steps in chunks of {REMAT_CLI_CHUNK} "
+                f"(captured; {runs[REMAT_CLI_CHUNK][2]} layer checkpoints "
+                f"at warm-up and capture, {runs[REMAT_CLI_CHUNK][1]:.1f} s) "
+                f"and by single steps ({runs[1][2]} checkpoints, "
+                f"{runs[1][1]:.1f} s): all {len(runs[1][0])} parameters "
+                f"bit-equal; on {smi}")
+        calls, warm = [0], graphs.warmup_steps
+        t0 = time.perf_counter()
+        with _counted_checkpoints(calls):
+            train_ncsn.main([
+                "train_ncsn", f"--flagfile={FLAGFILE}",
+                f"--model_dir={tmp}/train_ncsn-{REMAT_CLI_CHUNK}", *common,
+                "--distill", "--distill_mode=progressive",
+                "--distill_start_steps=4", "--distill_end_steps=2",
+                f"--distill_stage_steps={REMAT_CLI_STEPS}"])
+        torch.cuda.synchronize()
+        bundles = sorted(os.listdir(
+            f"{tmp}/train_ncsn-{REMAT_CLI_CHUNK}/distilled"))
+        if "2.pkl" not in bundles or not calls[0] or \
+                graphs.warmup_steps == warm:
+            fail(f"train_ncsn --distill --remat: bundles {bundles}, "
+                 f"{calls[0]} layer checkpoints, warm-up steps "
+                 f"{graphs.warmup_steps - warm}")
+        say(f"26b train_ncsn --distill --remat (progressive 4 -> 2, "
+            f"{REMAT_CLI_STEPS} steps, the stage's chunk captured; "
+            f"{calls[0]} layer checkpoints at warm-up and capture) on the "
+            f"chunked run's checkpoint: {time.perf_counter() - t0:.1f} s, "
+            f"bundles {bundles}; on {smi}")
 
 
 # Captured sampler chains (phase 27): each sampler's step captured in a CUDA
@@ -4840,6 +5079,8 @@ def main():
             f"{time.perf_counter() - t25:.1f} s")
     with Phase("26 captured training chunks"):
         served.extend(phase_chunks(smi))
+    with Phase("26b remat through the CLIs"):
+        phase_remat_clis(smi)
     with Phase("27 captured sampler chains"):
         served.extend(phase_chains(smi))
     with Phase("28 captured codec chains"):

@@ -231,8 +231,8 @@ def define_common_flags():
                      "logging is by chunk. 1 = one eager step at a time; "
                      "under torchrun, on any --model_parallelism, each of "
                      "the step's collectives runs eagerly between two of "
-                     "its captured graphs; more than 1 raises with --remat "
-                     "on the card.")
+                     "its captured graphs; with --remat the captured "
+                     "backward recomputes each transformer layer.")
     F.DEFINE_boolean("mixed_precision", False,
                      "bfloat16 compute with fp32 params.")
     F.DEFINE_boolean("adam_m_bf16", False,
@@ -240,7 +240,8 @@ def define_common_flags():
                      "fp32.")
     F.DEFINE_boolean("remat", False,
                      "Rematerialize transformer layers in the backward "
-                     "pass (activation checkpointing).")
+                     "pass (activation checkpointing), in eager steps and "
+                     "in the captured --scan_chunk alike.")
     F.DEFINE_string("device", "cuda",
                     "Device to run on: cuda (the default; raises without a "
                     "GPU) or cpu.")

@@ -35,7 +35,9 @@ class TransformerMDN(nn.Module):
 
     Flax infers the data width from the input; here it is
     ``data_channels``. ``dtype`` is the compute dtype of the trunk and the
-    resblocks; parameters keep theirs, as in Flax.
+    resblocks; parameters keep theirs, as in Flax. ``remat`` checkpoints the
+    trunk's layers in training (``TransformerEncoder``), as JAX wraps them in
+    ``nn.remat``; the head keeps its activations.
     """
 
     def __init__(self, data_channels: int, num_layers: int = 6,

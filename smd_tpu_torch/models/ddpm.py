@@ -10,7 +10,9 @@ launches), and with the int8 serving head (``quantized_head=True``: each
 head resblock is a ``QuantDenseResBlock``; with ``quantized_head_kernel``
 its two matmuls are two ``w8a8_dense`` launches). ``dtype`` is the compute
 dtype; parameters keep theirs, as in Flax. ``remat=True`` recomputes each
-transformer layer in the backward pass instead of keeping its activations.
+transformer layer in the backward pass instead of keeping its activations
+(``torch.utils.checkpoint`` without the RNG stash, since a layer draws
+nothing), in eager steps and inside a captured training chunk alike.
 The models take ``(x, cond)`` with ``cond`` the noise level in any of the
 shapes (B,), (B,1), (B,1,1).
 
@@ -130,6 +132,17 @@ class TransformerEncoder(nn.Module):
 
     ``decode`` runs one position over a ``KVCache`` (``init_cache``) of
     ``max_decode_length`` positions, in the standard layout only.
+
+    ``remat`` checkpoints each layer while autograd records (training;
+    serving, a teacher's calls under ``no_grad`` and ``decode`` keep their
+    activations, as JAX's ``not decode`` does). The recompute is exact: a
+    layer draws nothing, so its second run is the same kernels on the same
+    inputs, and the checkpoint stashes no generator state
+    (``preserve_rng_state=False``), which a CUDA graph could not capture.
+    The recompute stops at the last tensor the backward needs
+    (non-reentrant checkpointing), so on a model axis it runs the MLP's
+    input Dense's all-gather again (``parallel/column.py``), on autograd's
+    thread in the backward, and not the output Dense's.
     """
 
     def __init__(self, in_channels: int, num_layers: int = 6,
@@ -163,8 +176,10 @@ class TransformerEncoder(nn.Module):
             layer = getattr(self, name)
             if self.remat and torch.is_grad_enabled():
                 # The backward pass runs the layer again instead of keeping
-                # its activations, as nn.remat(block_cls) does.
-                x = checkpoint(layer, x, use_reentrant=False)
+                # its activations, as nn.remat(block_cls) does; no
+                # generator stash (see the class's docstring).
+                x = checkpoint(layer, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = layer(x)
         return x

@@ -192,8 +192,8 @@ def make_train_chunk(objective, sigmas, continuous_noise: bool, mesh=None):
     batch (``mesh.shard_chunk``; the ranks of a model group take the same
     rows) and ``draws`` the global batch's, as for ``make_train_step``;
     each of the step's collectives runs eagerly between two of its
-    captured graphs (``graphs.TrainChunk``). ``remat`` cannot be
-    captured."""
+    captured graphs (``graphs.TrainChunk``). A ``remat`` model's layers are
+    recomputed inside the captured backward."""
     loss_fn = make_loss_fn(objective, sigmas, continuous_noise, mesh)
     return graphs.TrainChunk(
         lambda state, batch, draws: loss_fn(state.model, batch,

@@ -33,11 +33,19 @@ kernels.
   of the gradients and the loss (``TrainState.gradients``). The same
   arithmetic as the per-step run: a chunk is bit-equal to the ranks'
   single steps.
-- **Things that cannot be captured** raise with their name: ``remat``
-  (``torch.utils.checkpoint`` saves the generator's state), autograd's
-  anomaly mode (``debug_nans``: the loop checks the chunk's losses instead,
-  as JAX's ``debug_nans`` does inside a scan), a state tensor rebound since
-  the capture. On the card a capture or replay that fails raises; no chunk
+- **Remat.** A model built with ``remat`` checkpoints each transformer
+  layer (``models/ddpm.py``, as JAX's ``nn.remat`` under ``lax.scan``):
+  the captured forward keeps no layer activations, and the captured
+  backward runs each layer again on autograd's device thread, its kernels
+  (``fused_ln_attention`` in the fused layout) launched a second time, its
+  memory from the graph's pool and its launches counted at each replay.
+  The checkpoint stashes no generator state, since a layer draws nothing.
+  On a model axis the recompute's all-gathers cut the capture like the
+  forward's.
+- **Things that cannot be captured** raise: autograd's anomaly mode
+  (``debug_nans``: the loop checks the chunk's losses instead, as JAX's
+  ``debug_nans`` does inside a scan), a state tensor rebound since the
+  capture. On the card a capture or replay that fails raises; no chunk
   falls back to eager steps.
 
 On a CPU the same step runs K times eagerly, reading its slots from the same
@@ -50,14 +58,7 @@ from typing import Callable
 
 from smd_tpu_torch.utils.graphs import StepChunk
 
-__all__ = ["StepChunk", "TrainChunk", "uncapturable"]
-
-
-def uncapturable(state):
-    """The modes of ``state.model`` that a CUDA graph cannot capture:
-    ``remat`` (``torch.utils.checkpoint`` reads the generator's state)."""
-    return ("remat",) if any(getattr(m, "remat", False)
-                             for m in state.model.modules()) else ()
+__all__ = ["StepChunk", "TrainChunk"]
 
 
 class TrainChunk:
@@ -70,9 +71,7 @@ class TrainChunk:
     tuple of (K, ...) stacks of replayed draws (each step gets its row of
     each), or None to draw from ``state.generator``. The LR and Adam's bias
     corrections are staged per step (``Optimizer.tables``), and the state
-    counts the K steps after them. What of the state's model cannot be
-    captured raises on the card (``uncapturable``). ``close()`` frees the
-    graph.
+    counts the K steps after them. ``close()`` frees the graph.
     """
 
     def __init__(self, loss_fn: Callable, label: str):
@@ -86,7 +85,7 @@ class TrainChunk:
             self._state = state
             self._chunk = StepChunk(
                 lambda slot: self._step(state, slot), state.tensors,
-                state.generator, self.label, uncapturable(state))
+                state.generator, self.label)
         inputs = {"batch": batches}
         if draws is not None:
             inputs.update({f"draw{j}": d for j, d in enumerate(draws)})

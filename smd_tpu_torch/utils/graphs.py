@@ -51,10 +51,15 @@ a step where the eager step launches hundreds to thousands of kernels.
   relaxed mode, which lets a thread end a capture that another began, and
   that thread's current stream is the capture stream, where the forward
   ran.
-- **Failures raise.** A mode named in ``unsupported``, autograd's anomaly
-  mode, a state tensor rebound since the capture, or a capture, replay or
-  collective that fails raises with the step's label; nothing falls back to
-  eager steps.
+- **Recomputed layers.** A step whose model checkpoints its layers
+  (``remat``) runs each layer again in its backward, on autograd's device
+  thread: the recompute's launches go to the capture stream, its memory
+  comes from the graph's pool, its kernel launches are counted with the
+  rest of the capture's, and its collectives cut the capture as the
+  backward's do.
+- **Failures raise.** Autograd's anomaly mode, a state tensor rebound since
+  the capture, or a capture, replay or collective that fails raises with
+  the step's label; nothing falls back to eager steps.
 
 On a CPU the same step runs eagerly, reading its slots from the same staged
 buffers: the plain version, which the tests hold against the JAX package.
@@ -277,20 +282,16 @@ class StepChunk:
     this step's. ``mutable()`` lists the tensors a step writes in place
     beside the per-call buffers (saved and restored around the warm-up;
     their storage checked before each chunk); ``generator`` is the step's
-    generator; ``unsupported`` names modes of the step that cannot be
-    captured (raised on the card); ``label`` names the step in errors. The
-    step's collectives go through ``collective`` (see the module's
-    docstring).
+    generator; ``label`` names the step in errors. The step's collectives
+    go through ``collective`` (see the module's docstring).
     """
 
     def __init__(self, step: Callable, mutable: Callable[[], List],
-                 generator: Optional[torch.Generator], label: str,
-                 unsupported: Sequence[str] = ()):
+                 generator: Optional[torch.Generator], label: str):
         self.step = step
         self.mutable = mutable
         self.generator = generator
         self.label = label
-        self.unsupported = tuple(unsupported)
         self._cache: Dict[tuple, _Slots] = {}
         self._last: Optional[_Slots] = None
 
@@ -359,11 +360,6 @@ class StepChunk:
 
     def _capture(self, slots: _Slots, variant):
         global warmup_steps, _CAPTURE
-        if self.unsupported:
-            raise ValueError(
-                f"the {self.label} cannot be captured in a CUDA graph with "
-                f"{', '.join(self.unsupported)}; run its steps one at a "
-                "time")
         if torch.is_anomaly_enabled():
             raise ValueError(
                 f"the {self.label} cannot be captured in a CUDA graph under "

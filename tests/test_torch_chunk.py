@@ -2,17 +2,19 @@
 on the CPU.
 
 ``make_train_chunk`` of the diffusion trainer (a ToyDDPM and a 1-layer
-fused TransformerDDPM, JAX's kernels on their references) and of the MDN
-against
-JAX's ``make_train_chunk`` with K = 3, from the same params and batches,
-JAX's per-key draws replayed; each trainer's chunk against as many eager
+fused TransformerDDPM, JAX's kernels on their references, with and without
+``remat``) and of the MDN (with and without ``remat``) against JAX's
+``make_train_chunk`` with K = 3, from the same params and batches, JAX's
+per-key draws replayed; each trainer's chunk against as many eager
 steps from the same state and generator state, bit for bit (on the CPU the
 chunk runs its steps eagerly, reading its slots from the staged buffers
-the card's CUDA graph reads); the state's storage kept across steps,
-chunks and a resume (what a captured step needs); the staged tables equal
-to the host's floats; the loop's chunk boundaries; the mesh rule (the
-chunk is made under any grid; ``remat`` and ``--distill`` across ranks
-raise) and the debug rule. Small sizes.
+the card's CUDA graph reads), and each ``remat`` chunk against its eager
+``remat`` steps and against the chunk without ``remat``; a checkpointed
+layer leaving the generators where they were; the state's storage kept
+across steps, chunks and a resume (what a captured step needs); the staged
+tables equal to the host's floats; the loop's chunk boundaries; the mesh
+rule (the chunk is made under any grid; ``--distill`` across ranks
+raises) and the debug rule. Small sizes.
 """
 import types
 from pathlib import Path
@@ -46,7 +48,7 @@ from smd_tpu_torch.utils.flax_params import flatten, load_flax_params
 from test_torch_mdn import _jax_setup as _mdn_jax_setup
 from test_torch_mdn import _port as _mdn_port
 from test_torch_ncsn_models import xla_frequencies  # noqa: F401 (fixture)
-from test_torch_parallel import KEY_BIAS_RTOL
+from test_torch_parallel import KEY_BIAS_RTOL, port_name, remat_layer_names
 from test_torch_training import _close, _jax_opt_state_tree, _replayed_draws
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -59,6 +61,10 @@ NETWORKS = {
     "toy": ("ToyDDPM", dict(num_layers=2, mlp_dims=32), (4, 2), (1, 1), {}),
     "fused": ("TransformerDDPM", FUSED_KW, (4, 8, 6), (1, 1, 1),
               dict(fused_attention=True, fused_head=True)),
+    # Each layer checkpointed: JAX's nn.remat under its scan, the port's
+    # torch.utils.checkpoint under the chunk.
+    "fused_remat": ("TransformerDDPM", FUSED_KW, (4, 8, 6), (1, 1, 1),
+                    dict(fused_attention=True, fused_head=True, remat=True)),
 }
 
 
@@ -88,14 +94,17 @@ def _jax_diffusion(name):
                                    jnp.zeros(cond)), 7)
     if extra:
         params = fuse_head_params(fuse_attention_params(params))
+    model = load_flax_params(get_model(arch, device="cpu",
+                                       data_channels=shape[-1], **kw,
+                                       **extra), params)
+    if extra.get("remat"):
+        params = remat_layer_names(params)
     jstate = jtrainer.create_train_state(jax.random.PRNGKey(0), plain,
                                          (1, *shape[1:]), cond, jconfig)
     jstate = jstate.replace(
         params=params, ema_params=jax.tree_util.tree_map(jnp.copy, params),
         opt_state=jstate.tx.init(params))
-    model = get_model(arch, device="cpu", data_channels=shape[-1], **kw,
-                      **extra)
-    return jmodel, jstate, load_flax_params(model, params)
+    return jmodel, jstate, model
 
 
 @pytest.fixture
@@ -143,11 +152,11 @@ def _assert_chunk_state_matches(state, jstate):
     adam = jstate.opt_state[1][0]
     for key in ("mu", "nu"):
         for name, ref in flatten(getattr(adam, key)).items():
-            _close(state.opt_state[key][name], ref, 1e-4)
+            _close(state.opt_state[key][port_name(name)], ref, 1e-4)
     for ours, refs in ((state.params, jstate.params),
                        (state.ema_params, jstate.ema_params)):
         for name, ref in flatten(refs).items():
-            ref = np.asarray(ref)
+            name, ref = port_name(name), np.asarray(ref)
             got = ours[name].detach().numpy()
             assert np.abs(got - ref).max() <= 2 * K * LR, name
             blocks = [(got, ref, 1e-5, np.linalg.norm(ref))]
@@ -193,7 +202,7 @@ def test_diffusion_chunk_matches_jax(name, xla_frequencies,  # noqa: F811
         schedules.noise_schedule(1e-6, 0.01, T, "linear"), True)
     state, tm = chunk(state, torch.from_numpy(batches),
                       draws=tuple(torch.stack(d) for d in zip(*draws)))
-    if name == "fused":
+    if name.startswith("fused"):
         # Each step's model call through JAX's kernels: 2 film halves a
         # FiLM layer's, one attention a layer (K steps, traced once).
         assert jax_fused_references == [2 * FUSED_KW["num_mlp_layers"],
@@ -211,7 +220,18 @@ def test_mdn_chunk_matches_jax():
     """The MDN's chunk against JAX's ``smd_tpu/training/mdn.py``
     ``make_train_chunk``: the (K,) rows within 1e-5, Adam's moments and
     the params as the MDN's one-step test holds them."""
-    jmodel, params = _mdn_jax_setup()
+    _check_mdn_chunk_against_jax(remat=False)
+
+
+def test_mdn_remat_chunk_matches_jax():
+    """As ``test_mdn_chunk_matches_jax``, each trunk layer checkpointed in
+    both packages (JAX's ``nn.remat`` under its scan, the port's
+    ``torch.utils.checkpoint`` under its chunk)."""
+    _check_mdn_chunk_against_jax(remat=True)
+
+
+def _check_mdn_chunk_against_jax(remat):
+    jmodel, params = _mdn_jax_setup(remat=remat)
     jconfig = jtrainer.TrainConfig(learning_rate=LR, lr_schedule_interval=1,
                                    lr_gamma=0.9)
     jstate = jmdn.create_train_state(jax.random.PRNGKey(0), jmodel,
@@ -224,18 +244,22 @@ def test_mdn_chunk_matches_jax():
     jstate, jm = jchunk(jstate, jnp.asarray(batches))
     config = mdn.TrainConfig(learning_rate=LR, lr_schedule_interval=1,
                              lr_gamma=0.9)
-    state = mdn.create_train_state(_mdn_port(params), config, init=False)
+    state = mdn.create_train_state(
+        _mdn_port(remat_layer_names(params, False), remat=remat), config,
+        init=False)
     state, tm = mdn.make_train_chunk()(state, torch.from_numpy(batches))
     for key in ("loss", "grad", "lr"):
         np.testing.assert_allclose(tm[key].numpy(), np.asarray(jm[key]),
                                    rtol=1e-5)
     assert state.step == int(jstate.step) == K
-    ref_opt = _jax_opt_state_tree(jstate)
+    ref_opt = {key: {port_name(n): v for n, v in tree.items()}
+               for key, tree in _jax_opt_state_tree(jstate).items()
+               if key in ("mu", "nu")}
     for key in ("mu", "nu"):
         for name, ref in ref_opt[key].items():
             _close(state.opt_state[key][name], ref.numpy(), 1e-4)
     for name, ref in flatten(jstate.params).items():
-        ref = np.asarray(ref)
+        name, ref = port_name(name), np.asarray(ref)
         diff = np.abs(state.params[name].detach().numpy() - ref)
         v_hat = ref_opt["nu"][name].numpy() / (1 - 0.999 ** K)
         small = np.sqrt(v_hat) < 1e-5
@@ -266,16 +290,19 @@ class _Diffusion:
 
     def __init__(self, kind):
         betas = _betas()
-        self.extra = []
+        kind, remat = kind.removesuffix("_remat"), kind.endswith("_remat")
         if kind == "mdn":
             model = get_model("TransformerMDN", device="cpu",
-                              data_channels=3, mdn_mixtures=2, **TINY)
+                              data_channels=3, mdn_mixtures=2, remat=remat,
+                              **TINY)
             self.state = mdn.create_train_state(model, mdn.TrainConfig())
             self.step, self.chunk = mdn.make_train_step(), \
                 mdn.make_train_chunk()
             return
         model = _tiny_ddpm(fused_attention=kind in ("fused", "bf16"),
-                           fused_head=kind in ("fused", "bf16"))
+                           fused_head=kind in ("fused", "bf16"),
+                           dtype=torch.bfloat16 if kind == "mixed" else
+                           torch.float32, remat=remat)
         if kind == "bf16":
             model = model.to(torch.bfloat16)
         config = trainer.TrainConfig(ema=True, mu=0.9, adam_m_bf16=True,
@@ -283,7 +310,7 @@ class _Diffusion:
         self.state = trainer.create_train_state(model, config, init=False)
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         grid, mids = distill.halve_grid(distill.distill_grid(betas, 4))
-        if kind in ("ddpm", "fused", "bf16", "ssm"):
+        if kind in ("ddpm", "mixed", "fused", "bf16", "ssm"):
             objective = trainer.objective_by_name(
                 "ssm" if kind == "ssm" else "ddpm")
             sig = np.linspace(1.0, 0.05, 10).astype(np.float32) \
@@ -352,8 +379,12 @@ class _Codec:
         return self.gen
 
 
-TRAINERS = ("ddpm", "fused", "bf16", "ssm", "mdn", "distill", "cd", "ct",
-            "codec")
+# Every trainer whose model takes ``remat`` (``mixed``: bf16 compute on
+# float32 params, --mixed_precision), its layers checkpointed.
+REMAT_TRAINERS = tuple(f"{kind}_remat" for kind in (
+    "ddpm", "mixed", "fused", "bf16", "ssm", "mdn", "distill", "cd", "ct"))
+TRAINERS = ("ddpm", "mixed", "fused", "bf16", "ssm", "mdn", "distill", "cd",
+            "ct", "codec") + REMAT_TRAINERS
 
 
 def _trainer(kind):
@@ -385,6 +416,65 @@ def test_chunk_equals_eager_steps(kind):
     assert ours.counts() == ref.counts()
     assert torch.equal(ours.generator().get_state(),
                        ref.generator().get_state())
+
+
+@pytest.mark.parametrize("kind", REMAT_TRAINERS)
+def test_remat_chunk_equals_the_plain_chunk(kind):
+    """A chunk of a model that checkpoints its layers against the same
+    chunk of the same model without ``remat``, from the same state: bit for
+    bit (the backward's recompute runs the same operations on the same
+    inputs and draws nothing)."""
+    batches = _trainer_batches(kind)
+    ours, ref = _trainer(kind), _trainer(kind.removesuffix("_remat"))
+    assert torch.equal(torch.stack(ours.chunked(batches)),
+                       torch.stack(ref.chunked(batches)))
+    for a, b in zip(ours.tensors(), ref.tensors()):
+        assert torch.equal(a, b)
+    assert torch.equal(ours.generator().get_state(),
+                       ref.generator().get_state())
+
+
+@pytest.mark.parametrize("arch", ["TransformerDDPM", "TransformerMDN"])
+def test_remat_layers_draw_nothing_and_stash_no_generator(arch,
+                                                          monkeypatch):
+    """``remat`` checkpoints each layer while autograd records, without
+    the generator stash that a CUDA graph cannot capture
+    (``preserve_rng_state=False``), and never under ``no_grad`` (serving,
+    a teacher's calls). The stash buys nothing: a checkpointed layer's
+    forward and backward leave the default generator where they were, and
+    the gradients equal the un-checkpointed model's."""
+    from smd_tpu_torch.models import ddpm
+    calls = []
+    real = ddpm.checkpoint
+
+    def spy(fn, *args, **kwargs):
+        calls.append(kwargs)
+        return real(fn, *args, **kwargs)
+
+    monkeypatch.setattr(ddpm, "checkpoint", spy)
+    kw = dict(TINY, num_layers=2)
+    extra = dict(mdn_mixtures=2) if arch == "TransformerMDN" else \
+        dict(fused_attention=True, fused_head=True)
+    models = [get_model(arch, device="cpu", data_channels=3, remat=remat,
+                        **kw, **extra) for remat in (True, False)]
+    models[1].load_state_dict(models[0].state_dict())
+    x = torch.from_numpy(_batches((2, 5, 3), k=1)[0])
+    args = (x,) if arch == "TransformerMDN" else (x, torch.full((2,), 0.3))
+    with torch.no_grad():
+        models[0](*args)
+    assert calls == []
+    grads = []
+    for model in models:
+        before = torch.get_rng_state()
+        out = model(*args)
+        out = out if torch.is_tensor(out) else torch.cat(out, -1)
+        grads.append(torch.autograd.grad(out.square().sum(),
+                                         list(model.parameters())))
+        assert torch.equal(torch.get_rng_state(), before)
+    assert calls == [dict(use_reentrant=False,
+                          preserve_rng_state=False)] * kw["num_layers"]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def _cd_target(chunk):
@@ -497,11 +587,10 @@ def test_chunked_resume_equals_a_straight_chunked_run(tmp_path):
 def test_scan_chunk_under_a_mesh_raises(monkeypatch):
     """Under any mesh (a data axis, a model axis, both) the chunk is made:
     each collective of its step cuts the captured step
-    (``utils/graphs.collective``), and the loop's refusal is gone
-    (tests/test_torch_parallel.py runs the chunks on 2 ranks). What still
-    raises: ``remat``, which a CUDA graph cannot capture (named by
-    ``uncapturable``, raised at the card's capture before any warm-up
-    step), and ``--distill`` across ranks, whose steps take no mesh, as in
+    (``utils/graphs.collective``), the recompute's of a ``remat`` model
+    too, and the loop's refusal is gone (tests/test_torch_parallel.py runs
+    the chunks on 2 ranks, with ``remat`` on the model axis). What still
+    raises: ``--distill`` across ranks, whose steps take no mesh, as in
     JAX."""
     from smd_tpu_torch import train_ncsn
     from smd_tpu_torch.parallel import mesh as mesh_lib
@@ -513,13 +602,6 @@ def test_scan_chunk_under_a_mesh_raises(monkeypatch):
         assert isinstance(mdn.make_train_chunk(mesh=mesh), graphs.TrainChunk)
     assert not hasattr(loop, "MESH_CHUNK")
     assert not hasattr(loop, "check_chunk_mesh")
-    state = _port_state(_tiny_ddpm(remat=True))
-    chunk = graphs.StepChunk(lambda slot: {}, state.tensors, None,
-                             "diffusion train step",
-                             graphs.uncapturable(state))
-    with pytest.raises(ValueError, match="diffusion train step cannot be "
-                       "captured in a CUDA graph with remat"):
-        chunk._capture(None, None)
     monkeypatch.setattr(train_ncsn.cli, "initialize_from_flags",
                         lambda: (0, 2))
     monkeypatch.chdir(ROOT)
@@ -543,11 +625,23 @@ def test_debug_nans_checks_each_chunks_losses(tmp_path):
 
 
 def test_uncapturable_modes_are_named():
-    """``remat`` is named for the card's capture to raise on; a plain model
-    has nothing to name. On the CPU the chunk runs remat's steps."""
+    """What a CUDA graph cannot capture raises at the card's capture with
+    its name, before any warm-up step: autograd's anomaly mode. ``remat``
+    is not among them: no chunk takes a list of modes to refuse, and a
+    ``remat`` model's chunk runs its steps."""
+    import inspect
     state = _port_state(_tiny_ddpm(remat=True))
-    assert graphs.uncapturable(state) == ("remat",)
-    assert graphs.uncapturable(_port_state(_tiny_ddpm())) == ()
+    assert not hasattr(graphs, "uncapturable")
+    assert list(inspect.signature(graphs.StepChunk).parameters) == \
+        ["step", "mutable", "generator", "label"]
+    chunk = graphs.StepChunk(lambda slot: {}, state.tensors, None,
+                             "diffusion train step")
+    with torch.autograd.set_detect_anomaly(True):
+        with pytest.raises(ValueError, match="diffusion train step cannot "
+                           "be captured in a CUDA graph under autograd's "
+                           "anomaly mode"):
+            chunk._capture(None, None)
     chunk = trainer.make_train_chunk(losses.diffusion_loss, _betas(), True)
     _, metrics = chunk(state, _trainer_batches("ddpm", 2))
     assert torch.isfinite(metrics["loss"]).all()
+    assert chunk._chunk.label == "diffusion train step"

@@ -5,7 +5,8 @@ absl); here it is held against absl on the JAX package's flag definitions
 for every ``configs/ddpm-*.cfg`` and ``configs/ncsn-*.cfg`` with
 command-line overrides. ``python -m smd_tpu_torch.train_ncsn --device=cpu``
 trains a tiny flagship from ``configs/ddpm-mel-32seq-512.cfg``,
-checkpoints, resumes, and its checkpoint is served.
+checkpoints, resumes, and its checkpoint is served; with ``--remat`` its
+chunked run equals its run by single steps.
 """
 import functools
 import os
@@ -145,6 +146,30 @@ def test_train_ncsn_trains_checkpoints_resumes_and_serves(tmp_path):
         (32, 42), num_samples=2, sampling=cli.FLAGS.sampling,
         collect_steps=0, collect_metrics=False, device="cpu")
     assert samples.shape == (2, 32, 42) and torch.isfinite(samples).all()
+
+
+def test_train_ncsn_remat_chunk_equals_its_steps(tmp_path):
+    """``train_ncsn --remat --scan_chunk=2`` (a chunk of 2, then one step
+    cut at max_steps; each layer recomputed in the backward) ends bit-equal
+    to the same ``--remat`` run by single steps: params, Adam moments,
+    EMA and generator."""
+    data = tmp_path / "data"
+    _write_dataset(data)
+    runs = []
+    for scan_chunk in (2, 1):
+        state = train_ncsn.main([
+            "train_ncsn", "--flagfile=configs/ddpm-mel-32seq-512.cfg",
+            f"--dataset={data}", "--slice_ckpt=checkpoints/slice-mel-512.pkl",
+            f"--model_dir={tmp_path}/m{scan_chunk}", "--remat",
+            f"--scan_chunk={scan_chunk}", "--snapshot_freq=5",
+            "--max_steps=3", *TINY])
+        assert state.step == 3
+        assert state.model.TransformerEncoder_0.remat
+        runs.append(state)
+    for a, b in zip(runs[0].tensors(), runs[1].tensors()):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0].generator.get_state(),
+                       runs[1].generator.get_state())
 
 
 def test_train_ncsn_needs_a_gpu_or_device_cpu(tmp_path, monkeypatch):

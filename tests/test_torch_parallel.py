@@ -15,15 +15,19 @@ the data axis and on the model axis (a chunk of 4 and one of 2) bit-equal
 to the same ranks' single steps and within 1e-5 of JAX's chunks over its
 mesh of 2 of those devices on the same grid (``shard_chunk``); counts the
 collectives of a step, every one through ``graphs.collective`` (the cut
-of a captured step); and trains through ``train_ncsn`` (model axis 2 and
-data axis 2, each chunked and by single steps) and ``train_mdn`` (data
-axis 2). ``dryrun_multichip(4)`` spawns 4 ranks of its own, its 2 x 2
+of a captured step), with and without ``remat`` (the models' layers
+checkpointed, their all-gathers recomputed in the backward; its chunks on
+the model axis held to the single steps and to JAX's ``remat`` chunks);
+and trains through ``train_ncsn`` (model axis 2 and data axis 2, each
+chunked and by single steps) and ``train_mdn`` (data axis 2). ``dryrun_multichip(4)`` spawns 4 ranks of its own, its 2 x 2
 chunk against its single steps. Also the op profile of
 ``utils/profiling``.
 """
 import json
 import os
 import pickle
+import re
+from collections.abc import Mapping
 from pathlib import Path
 
 import jax
@@ -293,6 +297,31 @@ def _jax_step(case, data, model):
 # against JAX and the loop against one rank); every other block at most
 # 6.9e-6 of its own.
 KEY_BIAS_RTOL = 1e-3
+# Flax's nn.remat names each wrapped transformer layer "Checkpoint" + its
+# class's name (TransformerEncoder_0/CheckpointTransformerLayer_0/...); the
+# port's modules keep the plain names with remat or without.
+_LAYER = re.compile(r"(Fused)?TransformerLayer_\d+")
+
+
+def remat_layer_names(tree, remat=True):
+    """A Flax tree with its transformer layers named as JAX's ``remat``
+    model names them (``remat=True``) or as the plain model and the port
+    name them (``False``)."""
+    out = {}
+    for key, value in tree.items():
+        if remat and _LAYER.fullmatch(key):
+            key = "Checkpoint" + key
+        elif not remat and key.startswith("Checkpoint"):
+            key = key[len("Checkpoint"):]
+        out[key] = remat_layer_names(value, remat) \
+            if isinstance(value, Mapping) else value
+    return out
+
+
+def port_name(name):
+    """The port's parameter name for a flattened Flax leaf name, with or
+    without ``remat``'s layer names."""
+    return name.replace(".Checkpoint", ".")
 
 
 def _assert_leaves_close(ours, ref, rtol=1e-5, stepped=False,
@@ -302,7 +331,7 @@ def _assert_leaves_close(ours, ref, rtol=1e-5, stepped=False,
     by block, the key block to KEY_BIAS_RTOL of the leaf's norm, or, with
     ``key_steps`` (K steps taken), each of its elements within 2·K·lr
     (``KEY_STEPS_RULE``)."""
-    ref = {k: np.asarray(v) for k, v in flatten(ref).items()}
+    ref = {port_name(k): np.asarray(v) for k, v in flatten(ref).items()}
     assert set(ours) == set(ref)
     for name, want in ref.items():
         got = ours[name]
@@ -371,33 +400,37 @@ def _jax_chunks(case, trainer_name, grid="dp"):
     """JAX's chunks over ``grid``'s CHUNK_MESHES grid of conftest's
     devices, as its chunked ``fit`` runs them (tests/test_parallel.py): the
     case's params laid out by ``shard_params``, each (K, 8, ...) stack by
-    ``shard_chunk``. Returns the state and the 6 losses."""
-    shape = CHUNK_MESHES[grid]
+    ``shard_chunk``; a grid ending in ``_remat`` checkpoints the models'
+    layers (``nn.remat``, its layer names). Returns the state and the 6
+    losses."""
+    remat = grid.endswith("_remat")
+    shape = CHUNK_MESHES[grid.removesuffix("_remat")]
     mesh = jmesh.make_mesh(jmesh.MeshConfig(**shape),
                            devices=jax.devices()[:shape["data"] *
                                                  shape["model"]])
     schedule = joptimizer.stepped_exponential_schedule(1e-3, 1, 0.9)
     config = jtrainer.TrainConfig(**TRAIN)
     if trainer_name == "mdn":
-        jmodel = jax_get_model("TransformerMDN", **MDN_KW)
+        jmodel = jax_get_model("TransformerMDN", remat=remat, **MDN_KW)
         state = jmdn.create_train_state(jax.random.PRNGKey(0), jmodel,
                                         (1, S, C), config)
         params, stack = case["mdn_params"], case["mdn_batches"]
         chunk = jmdn.make_train_chunk(jmodel, schedule)
     else:
-        jmodel = jax_get_model("TransformerDDPM", **KW)
+        jmodel = jax_get_model("TransformerDDPM", remat=remat, **KW)
         state = jtrainer.create_train_state(
             jax.random.PRNGKey(0), jmodel, (1, S, C), (1, 1, 1), config)
         params, stack = case["params"], case["chunk_batches"]
         chunk = jtrainer.make_train_chunk(
             jmodel, jlosses.diffusion_loss, jschedules.noise_schedule(*BETAS),
             True, schedule)
+    params = remat_layer_names(params, remat)
     shardings = jmesh.shard_params(params, mesh)
     params = jax.device_put(params, shardings)
     state = state.replace(params=params, opt_state=state.tx.init(params))
     if state.ema_params is not None:
         state = state.replace(ema_params=jax.device_put(
-            case["params"], shardings))
+            remat_layer_names(case["params"], remat), shardings))
     losses = []
     for seed, (lo, hi) in zip(CHUNK_KEYS, CHUNK_CUTS):
         batches = jmesh.shard_chunk(jnp.asarray(stack[lo:hi]), mesh)
@@ -474,7 +507,26 @@ def test_model_axis_chunk_equals_jax(ranks, trainer_name):
     _check_chunk_equals_jax(ranks, "tp", trainer_name)
 
 
-@pytest.mark.parametrize("grid", ["dp", "tp"])
+@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
+def test_model_axis_remat_chunk_equals_the_per_step_ranks(ranks,
+                                                          trainer_name):
+    """With each transformer layer checkpointed (``remat``), on a model
+    axis of 2: the backward's recompute runs the layers' all-gathers
+    again, between the step's captured graphs as well; every rank's state,
+    the losses and the generator bit-equal to its 6 single ``remat``
+    steps."""
+    _check_chunk_equals_steps(ranks[1], "tp_remat", trainer_name)
+
+
+@pytest.mark.parametrize("trainer_name", ["replayed", "mdn"])
+def test_model_axis_remat_chunk_equals_jax(ranks, trainer_name):
+    """The 2 ranks' ``remat`` chunks on a model axis against JAX's chunks
+    of its ``remat`` models (``nn.remat`` under the scan) on a (data 1,
+    model 2) mesh, by the rules of the chunks without it."""
+    _check_chunk_equals_jax(ranks, "tp_remat", trainer_name)
+
+
+@pytest.mark.parametrize("grid", ["dp", "tp", "tp_remat"])
 def test_every_collective_of_a_step_goes_through_the_cut(ranks, grid):
     """Every ``torch.distributed`` collective of a chunk's steps is called
     inside ``graphs.collective`` (where a captured step cuts its graphs;
@@ -482,7 +534,11 @@ def test_every_collective_of_a_step_goes_through_the_cut(ranks, grid):
     and a step cuts once for each split Dense's gather, once for each
     split Dense whose input needs a gradient (its all-reduce in the
     backward), once for the norm under a model axis and once for the
-    gradients' all-reduce under a data axis."""
+    gradients' all-reduce under a data axis. Under ``remat`` the backward
+    recomputes each transformer layer up to the last tensor it saved, so
+    it gathers again for every split Dense of a layer but the last (the
+    MLP's output Dense, whose gathered output only the residual sum
+    reads): one cut more for each."""
     _, out, _ = ranks
     cuts = out["cuts"][grid]
     assert cuts["outside"] == 0
@@ -491,13 +547,20 @@ def test_every_collective_of_a_step_goes_through_the_cut(ranks, grid):
     assert per_step * cuts["steps"] == cuts["cuts"]
     data, model = (2, 1) if grid == "dp" else (1, 2)
     dense, grad_inputs = cuts["split_dense"], cuts["grad_inputs"]
+    recomputed = 0
+    if grid == "tp_remat":
+        layers = KW["num_layers"]
+        assert cuts["layer_dense"] == 2 * layers   # each MLP's two Dense
+        recomputed = cuts["layer_dense"] - layers
+    assert cuts["gathers"] == (dense + recomputed) * cuts["steps"]
     assert bool(dense) == (model > 1)
-    assert per_step == dense + grad_inputs + (model > 1) + (data > 1)
-    if grid == "tp":
+    assert per_step == dense + grad_inputs + (model > 1) + (data > 1) + \
+        recomputed
+    if grid != "dp":
         # The trunk's input projection and each FiLM's first Dense take
         # the data and the noise embedding, which need no gradient.
         assert (dense, grad_inputs) == (19, 16)
-        assert per_step == 2 * dense - 3 + 1
+        assert per_step == 2 * dense - 3 + 1 + recomputed
 
 
 def _one_rank_loop(case, max_steps, model_dir=None):

@@ -27,6 +27,9 @@ from smd_tpu_torch.utils.flax_params import load_flax_params
 
 GRIDS = (("dp", mesh_lib.MeshConfig(data=2, model=1)),
          ("tp", mesh_lib.MeshConfig(data=1, model=2)))
+# The model axis with each transformer layer checkpointed (``remat``): the
+# backward's recompute runs the layers' all-gathers again.
+REMAT_GRID = ("tp_remat", mesh_lib.MeshConfig(data=1, model=2))
 # Every collective of torch.distributed a step could call.
 COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
                "all_to_all", "all_to_all_single", "barrier", "broadcast",
@@ -40,9 +43,10 @@ def _numpy(tree):
             for k, v in tree.items()}
 
 
-def _model(case):
+def _model(case, remat=False):
     model = get_model("TransformerDDPM", device="cpu",
-                      data_channels=case["channels"], **case["kw"])
+                      data_channels=case["channels"], remat=remat,
+                      **case["kw"])
     return load_flax_params(model, case["params"])
 
 
@@ -92,9 +96,10 @@ def _loop(case, model_dir, config, max_steps):
             "files": sorted(os.listdir(f"{model_dir}/ckpt"))}
 
 
-def _mdn_model(case):
+def _mdn_model(case, remat=False):
     model = get_model("TransformerMDN", device="cpu",
-                      data_channels=case["channels"], **case["mdn_kw"])
+                      data_channels=case["channels"], remat=remat,
+                      **case["mdn_kw"])
     return load_flax_params(model, case["mdn_params"])
 
 
@@ -107,23 +112,26 @@ def _replicated(state):
     return [tree[n].detach() for tree in trees for n in whole if n in tree]
 
 
-def _cuts(case, config):
-    """A chunk of 2 diffusion steps of the narrow flagship over
-    ``config``'s mesh with every collective of ``torch.distributed``
-    wrapped: the calls made outside ``graphs.collective`` and inside it,
-    the cuts (``graphs.collective`` calls) a step, the split Dense layers
-    and how many of them take an input that needs a gradient (those
-    all-reduce it in the backward)."""
+def _cuts(case, config, remat=False):
+    """A chunk of 2 diffusion steps of the narrow flagship (``remat``: its
+    layers checkpointed) over ``config``'s mesh with every collective of
+    ``torch.distributed`` wrapped: the calls made outside
+    ``graphs.collective`` and inside it, the cuts (``graphs.collective``
+    calls) a step, the all-gathers among them, the split Dense layers, how
+    many of them take an input that needs a gradient (those all-reduce it
+    in the backward) and how many lie inside the transformer layers."""
     mesh = mesh_lib.make_mesh(config)
-    state = trainer.create_train_state(_model(case), trainer.TrainConfig(
-        **case["train_config"]), init=False, mesh=mesh)
+    state = trainer.create_train_state(_model(case, remat),
+                                       trainer.TrainConfig(
+                                           **case["train_config"]),
+                                       init=False, mesh=mesh)
     modules = dict(state.model.named_modules())
     owners = sorted({n.rsplit(".", 1)[0] for n in state.specs})
     needs_grad = {}
     hooks = [modules[o].register_forward_pre_hook(
         lambda m, args, o=o: needs_grad.__setitem__(o, args[0].requires_grad))
         for o in owners]
-    calls = {"outside": 0, "inside": 0, "cuts": 0}
+    calls = {"outside": 0, "inside": 0, "cuts": 0, "gathers": 0}
     depth = [0]
     real_collective = graphs.collective
 
@@ -137,6 +145,7 @@ def _cuts(case, config):
 
     def wrapped(real, *args, **kwargs):
         calls["inside" if depth[0] else "outside"] += 1
+        calls["gathers"] += real is reals["all_gather"]
         return real(*args, **kwargs)
 
     reals = {n: getattr(dist, n) for n in COLLECTIVES if hasattr(dist, n)}
@@ -156,7 +165,8 @@ def _cuts(case, config):
         for hook in hooks:
             hook.remove()
     return {**calls, "steps": len(stack), "split_dense": len(owners),
-            "grad_inputs": sum(needs_grad.values())}
+            "grad_inputs": sum(needs_grad.values()),
+            "layer_dense": sum("TransformerLayer_" in o for o in owners)}
 
 
 def _state_out(state, losses):
@@ -170,10 +180,12 @@ def _state_out(state, losses):
             _numpy(saved["ema_params"])}
 
 
-def _chunks(case, config):
+def _chunks(case, config, remat=False,
+            trainers=("replayed", "drawn", "mdn")):
     """The diffusion trainer (the case's draws replayed, and drawn from
     the state's generator) and the MDN trainer over ``config``'s mesh (a
-    data axis of 2, or a model axis of 2): the global (6, batch, ...) stack
+    data axis of 2, or a model axis of 2; ``remat``: the models' layers
+    checkpointed): the global (6, batch, ...) stack
     as a chunk of 4 and a chunk of 2 (cut as at a snapshot), each rank on
     its rows (``shard_chunk``; both ranks of a model group on the whole
     stack), against the same ranks' 6 per-step steps on their rows of each
@@ -183,7 +195,7 @@ def _chunks(case, config):
     sigmas = schedules.noise_schedule(*case["betas"])
     config = trainer.TrainConfig(**case["train_config"])
     out = {}
-    for trainer_name in ("replayed", "drawn", "mdn"):
+    for trainer_name in trainers:
         stack = torch.from_numpy(case["mdn_batches" if trainer_name == "mdn"
                                       else "chunk_batches"])
         draws = None
@@ -191,13 +203,14 @@ def _chunks(case, config):
             draws = tuple(torch.from_numpy(d) for d in case["chunk_draws"])
         for how in ("steps", "chunk"):
             if trainer_name == "mdn":
-                state = mdn.create_train_state(_mdn_model(case), config,
-                                               init=False, mesh=mesh)
+                state = mdn.create_train_state(_mdn_model(case, remat),
+                                               config, init=False, mesh=mesh)
                 step, chunk = mdn.make_train_step(mesh), \
                     mdn.make_train_chunk(mesh)
             else:
                 state = trainer.create_train_state(
-                    _model(case), config, seed=5, init=False, mesh=mesh)
+                    _model(case, remat), config, seed=5, init=False,
+                    mesh=mesh)
                 step = trainer.make_train_step(losses.diffusion_loss, sigmas,
                                                True, mesh)
                 chunk = trainer.make_train_chunk(losses.diffusion_loss,
@@ -296,7 +309,10 @@ def run(rank, world, port, work):
                                          steps) for steps in (4, 6)]
         out["chunks"] = {name: _chunks(case, config)
                          for name, config in GRIDS}
+        out["chunks"][REMAT_GRID[0]] = _chunks(case, REMAT_GRID[1], True,
+                                               ("replayed", "mdn"))
         out["cuts"] = {name: _cuts(case, config) for name, config in GRIDS}
+        out["cuts"][REMAT_GRID[0]] = _cuts(case, REMAT_GRID[1], True)
         out["clis"] = _clis(case, work)
         if rank == 0:
             with open(f"{work}/out.pkl", "wb") as f:
